@@ -3,20 +3,27 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line per case:
 
 1. the card (nvidia-smi name and power limit) and the nvcc build of the
    kernels from the sources in this checkout;
-2. K1 nw_tb against its plain twin at the main path's buckets, both
-   scoring sets, B = 1024: exactly equal; kernel, twin and bound times;
-3. K2 nw_walk against its plain twin on those tracebacks: exactly equal;
+2. K1 nw_tb against its plain twin, exactly equal, with kernel, twin
+   and bound times: at the buckets (192,192), (256,192), (512,512) with
+   B = 1024 and both scoring sets; at the main path's launch shapes
+   (MAIN_LAUNCHES); on tie-heavy pairs (homopolymer runs, tandem repeats
+   with a unit inserted or deleted, identical sequences) at both scorings;
+3. K2 nw_walk against its plain twin on each of those tracebacks,
+   exactly equal, timed right after a K1 launch (warm L2, as the main
+   path finds it), with the longest walk's step count;
 4. the indel CNNs (diploid and haploid packs) on cuda against cpu,
    atol 2e-5, B = 256;
 5. the slice: a haplotagged fixture (one 1 Mb contig, ~30x, ONT-like
    errors, planted het and hom indels) through
    `nanocaller_tpu_torch.cli --mode indels --cpu 1 --device cuda` with
    the launch counters reset just before and read just after, then the
-   same command with --device cpu; the two indels.vcf.gz must agree.
+   same command with --device cpu; the two indels.vcf.gz must agree;
+   then the cuda run under torch.profiler, with the device time of K1's
+   two kernels and K2 on a line of its own.
 
 Then one JSON line with every kernel's launches, error and times, the
 nvidia-smi line, and as the last line
@@ -45,10 +52,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # int32 operations the DP needs per cell of K1, one each: the base match
 # test (the query code's < 4 test is per row), the substitution select,
 # diag = H[j-1] + sub, H - go, V - ge, the V max, the v_ext compare, the
-# G max, the came_v compare, c = G + (j*ge - go), one max of a
-# work-efficient prefix max, Z = M[j-1] - (j-1)*ge, the z_ext compare,
-# the came_z compare, the H max, the source select and one 3-input merge
-# of source, v_ext and z_ext into the traceback byte
+# G max, the came_v compare, G - go, Z - ge, the max that gives Z[j+1]
+# (one step of the reference's prefix max), the z_ext compare, the came_z
+# compare, the H max, the source select and one 3-input merge of source,
+# v_ext and z_ext into the traceback byte
 K1_OPS_PER_CELL = 17
 # int32 operations per walk step of K2 (a diagonal step), one each: the
 # cell address i*(R+1)+j, the state test, the j == 0 and i == 0 tests,
@@ -58,6 +65,15 @@ K2_OPS_PER_STEP = 10
 BUCKETS = [(192, 192), (256, 192), (512, 512)]
 SCORINGS = {"allele": (20, -10, 9, 1), "msa": (5, -4, 8, 1)}
 B_NW = 1024
+# (Q, R, B, scoring) of the main path's launches, from BatchAligner on
+# this script's fixture: each 100 kb chunk launches (192,192) with ~2,230
+# msa pairs, ~120 allele pairs and (64,192) with 56-88 msa pairs
+MAIN_LAUNCHES = [(192, 192, 2230, "msa"), (192, 192, 120, "allele"),
+                 (64, 192, 64, "msa")]
+B_TIE = 256
+# about 20 ms of spinning at the H100's clock: longer than the host takes
+# to queue one timed loop
+SPIN_CYCLES = 40_000_000
 FIXTURE_LEN = 1_000_000
 
 
@@ -70,19 +86,38 @@ def fail(msg):
     sys.exit(1)
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, prep=None):
+    """Mean device ms of fn() by CUDA events, after one warm-up. A spin
+    kernel queued first keeps the card busy while the host queues the
+    timed calls, so the host's time between launches is not counted.
+    With prep, each timed fn() follows an untimed prep() (K2 then reads
+    the traceback K1 has just written, from a warm L2, as on the main
+    path)."""
     import torch
 
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    fn()  # warm-up
+    fn() if prep is None else (prep(), fn())
     torch.cuda.synchronize()
-    start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    if prep is None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    marks = []
     for _ in range(reps):
+        prep()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
         fn()
-    end.record()
+        e1.record()
+        marks.append((e0, e1))
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return sum(a.elapsed_time(b) for a, b in marks) / reps
 
 
 def _mutate(rng, seq, rate):
@@ -100,28 +135,50 @@ def _mutate(rng, seq, rate):
     return "".join(out)
 
 
-def nw_inputs(rng, Q, R):
+def nw_inputs(rng, B, Q, R):
     """Half random codes with random lengths, half fixture-like pairs: a
     read window (the ref mutated at 10%) against its ref window."""
     import numpy as np
 
-    from nanocaller_tpu_torch.align.nw import _CHAR_CODE
+    from nanocaller_tpu_torch.align.batch_nw import encode_pairs
 
-    q = rng.integers(0, 5, (B_NW, Q)).astype(np.int8)
-    r = rng.integers(0, 5, (B_NW, R)).astype(np.int8)
-    qlens = rng.integers(1, Q + 1, B_NW).astype(np.int32)
-    rlens = rng.integers(1, R + 1, B_NW).astype(np.int32)
-    for b in range(B_NW // 2, B_NW):
+    q = rng.integers(0, 5, (B, Q)).astype(np.int8)
+    r = rng.integers(0, 5, (B, R)).astype(np.int8)
+    qlens = rng.integers(1, Q + 1, B).astype(np.int32)
+    rlens = rng.integers(1, R + 1, B).astype(np.int32)
+    pairs = []
+    for _ in range(B // 2, B):
         n = int(rng.integers(max(1, R - 40), R + 1))
         ref = "".join("ACGT"[x] for x in rng.integers(0, 4, n))
-        read = _mutate(rng, ref, 0.1)[:Q]
-        qa = _CHAR_CODE[np.frombuffer(read.encode(), np.uint8)]
-        ra = _CHAR_CODE[np.frombuffer(ref.encode(), np.uint8)]
-        q[b], r[b] = 4, 4
-        q[b, : len(qa)] = qa
-        r[b, : len(ra)] = ra
-        qlens[b], rlens[b] = len(qa), len(ra)
+        pairs.append((_mutate(rng, ref, 0.1)[:Q], ref))
+    fq, fr, fql, frl = encode_pairs(pairs, Q, R)
+    q[B // 2:], r[B // 2:], qlens[B // 2:], rlens[B // 2:] = fq, fr, fql, frl
     return q, r, qlens, rlens
+
+
+def nw_cases(rng):
+    """Phase 2-3 inputs: (label, Q, R, B, scoring, inputs)."""
+    from nanocaller_tpu_torch.align.batch_nw import encode_pairs
+    from nanocaller_tpu_torch.sim import TIE_KINDS, tie_heavy_pairs
+
+    for Q, R in BUCKETS:
+        inputs = nw_inputs(rng, B_NW, Q, R)
+        for sname in SCORINGS:
+            yield "bucket", Q, R, B_NW, sname, inputs
+    for Q, R, B, sname in MAIN_LAUNCHES:
+        yield "main_path", Q, R, B, sname, nw_inputs(rng, B, Q, R)
+    for kind in TIE_KINDS:
+        inputs = encode_pairs(tie_heavy_pairs(rng, B_TIE, 192, 192, kind),
+                              192, 192)
+        for sname in SCORINGS:
+            yield "ties_" + kind, 192, 192, B_TIE, sname, inputs
+
+
+def bound(nbytes, ops):
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
 
 
 def phase_kernels(K, rng):
@@ -129,59 +186,57 @@ def phase_kernels(K, rng):
     import torch
 
     rows = []
-    for Q, R in BUCKETS:
-        q, r, ql, rl = nw_inputs(rng, Q, R)
+    for label, Q, R, B, sname, (q, r, ql, rl) in nw_cases(rng):
+        params = SCORINGS[sname]
         qd, rd = torch.from_numpy(q).cuda(), torch.from_numpy(r).cuda()
-        qld, rld = torch.from_numpy(ql).cuda(), torch.from_numpy(rl).cuda()
-        for sname, params in SCORINGS.items():
-            tb = K.nw_tb(qd, rd, *params)
-            twin = K.nw_tb_reference(qd, rd, *params)
-            torch.cuda.synchronize()
-            err = int((tb.int() - twin.int()).abs().max())
-            if err != 0:
-                fail("K1 differs from its twin at Q=%d R=%d %s" % (Q, R, sname))
-            del twin
-            ms = cuda_ms(lambda: K.nw_tb(qd, rd, *params), 10)
-            plain_ms = cuda_ms(lambda: K.nw_tb_reference(qd, rd, *params), 2)
-            nbytes = B_NW * (Q + R) + B_NW * (Q + 1) * (R + 1)
-            ops = B_NW * Q * R * K1_OPS_PER_CELL
-            b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            b_ops = ops / INT32_OPS_PER_S * 1e3
-            row = {"phase": "K1_nw_tb", "Q": Q, "R": R, "B": B_NW,
-                   "scoring": sname, "exact": True, "max_abs_err": err,
-                   "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": max(b_bytes, b_ops),
-                   "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-                   "bytes": nbytes, "int32_ops": ops}
-            emit(row)
-            rows.append(row)
+        ql, rl = torch.from_numpy(ql), torch.from_numpy(rl)
+        qld, rld = ql.cuda(), rl.cuda()
+        shape = {"inputs": label, "Q": Q, "R": R, "B": B, "scoring": sname}
+        tb = K.nw_tb(qd, rd, *params)
+        twin = K.nw_tb_reference(qd, rd, *params)
+        torch.cuda.synchronize()
+        err = int((tb.int() - twin.int()).abs().max())
+        if err != 0:
+            fail("K1 differs from its twin at %s" % shape)
+        del twin
+        ms = cuda_ms(lambda: K.nw_tb(qd, rd, *params), 10)
+        plain_ms = cuda_ms(lambda: K.nw_tb_reference(qd, rd, *params), 1)
+        row = {"phase": "K1_nw_tb", **shape, "exact": True,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               **bound(B * (Q + R) + B * (Q + 1) * (R + 1),
+                       B * Q * R * K1_OPS_PER_CELL)}
+        emit(row)
+        rows.append(row)
 
-            T = 2 * (Q + R) + 2
-            ops_k = K.nw_walk(tb, qld, rld, T)
-            twin_k = K.nw_walk_reference(tb, qld, rld, T)
-            torch.cuda.synchronize()
-            err = int((ops_k.int() - twin_k.int()).abs().max())
-            if err != 0:
-                fail("K2 differs from its twin at Q=%d R=%d %s" % (Q, R, sname))
-            # every walk's last active step emits, so its active steps
-            # (traceback reads) run to its last non-zero op
-            nz = (ops_k != 0).int()
-            last = T - torch.flip(nz, [1]).argmax(dim=1)
-            steps = int(torch.where(nz.any(dim=1), last, 0).sum())
-            ms = cuda_ms(lambda: K.nw_walk(tb, qld, rld, T), 10)
-            plain_ms = cuda_ms(lambda: K.nw_walk_reference(tb, qld, rld, T), 1)
-            nbytes = B_NW * T + steps + 8 * B_NW
-            b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            b_ops = steps * K2_OPS_PER_STEP / INT32_OPS_PER_S * 1e3
-            row = {"phase": "K2_nw_walk", "Q": Q, "R": R, "B": B_NW,
-                   "scoring": sname, "exact": True, "max_abs_err": err,
-                   "steps": steps, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": max(b_bytes, b_ops),
-                   "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-                   "bytes": nbytes}
-            emit(row)
-            rows.append(row)
-            del tb, ops_k, twin_k
+        T = 2 * (Q + R) + 2
+        ops_k = K.nw_walk(tb, ql, rl, T)
+        twin_k = K.nw_walk_reference(tb, qld, rld, T)
+        torch.cuda.synchronize()
+        err = int((ops_k.int() - twin_k.int()).abs().max())
+        if err != 0:
+            fail("K2 differs from its twin at %s" % shape)
+        # every walk's last active step emits, so its active steps
+        # (traceback reads) run to its last non-zero op
+        nz = (ops_k != 0).int()
+        last = torch.where(nz.any(dim=1), T - torch.flip(nz, [1]).argmax(
+            dim=1), 0)
+        steps, longest = int(last.sum()), int(last.max())
+        cur = {}
+
+        def k1():
+            cur["tb"] = K.nw_tb(qd, rd, *params)
+
+        ms = cuda_ms(lambda: K.nw_walk(cur["tb"], ql, rl, T), 10, prep=k1)
+        plain_ms = cuda_ms(lambda: K.nw_walk_reference(tb, qld, rld, T), 1)
+        row = {"phase": "K2_nw_walk", **shape, "exact": True,
+               "max_abs_err": err, "steps": steps,
+               "longest_walk_steps": longest,
+               "ns_per_step_of_longest": ms * 1e6 / max(longest, 1),
+               "ms": ms, "plain_ms": plain_ms,
+               **bound(B * T + steps + 8 * B, steps * K2_OPS_PER_STEP)}
+        emit(row)
+        rows.append(row)
+        del tb, ops_k, twin_k, cur
     return rows
 
 
@@ -319,7 +374,8 @@ def phase_slice(K, tmp):
           "rounding_cases": n_round, "cuda_wall_s": wall,
           "cuda_timers_s": metrics["timers_s"], "cpu_wall_s": runs["cpu"][1],
           "cpu_timers_s": runs["cpu"][3]["timers_s"], **counts})
-    emit(profile)
+    for line in profile:
+        emit(line)
     return counts
 
 
@@ -344,10 +400,15 @@ def profile_slice(cli, tmp, bam_p, fasta_p):
               if e.device_type == cuda and e.self_device_time_total > 0}
     busy_s = sum(dev_us.values()) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    kernels_us = {name: sum(v for k, v in dev_us.items() if name in k)
+                  for name in ("nw_tb_rows_kernel", "nw_tb_wave_kernel",
+                               "nw_walk_kernel")}
     return {"phase": "slice_profile", "wall_s": wall,
             "device_busy_s": busy_s if dev_us else None,
             "device_idle_share": (1 - busy_s / wall) if dev_us else None,
-            "device_us_by_name": {k: v for k, v in top}}
+            "device_us_by_name": {k: v for k, v in top}}, {
+                "phase": "slice_profile_nw_kernels", **kernels_us,
+                "sum_us": sum(kernels_us.values())}
 
 
 def main():
@@ -371,7 +432,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    lib = K.build(verbose=False)
+    lib = K.build()
     build_s = time.perf_counter() - t0
     resolve_device("cuda")  # also pins TF32 off and deterministic cuDNN
     emit({"phase": "setup", "nvidia_smi": smi, "torch": torch.__version__,
@@ -386,6 +447,7 @@ def main():
 
     def pick(phase):
         return next(r for r in rows if r["phase"] == phase and
+                    r["inputs"] == "bucket" and
                     (r["Q"], r["R"], r["scoring"]) == (192, 192, "msa"))
 
     k1, k2 = pick("K1_nw_tb"), pick("K2_nw_walk")

@@ -60,6 +60,25 @@ def _traceback_matrix(tb, qlen, rlen):
     return ops
 
 
+def encode_pairs(pairs, Q, R):
+    """(query, ref) strings → qcodes (n, Q) int8 and rcodes (n, R) int8
+    (0-3 ACGT, 4 other and pad) and their (n,) int32 lengths: one bucket's
+    inputs to K1 and K2."""
+    n = len(pairs)
+    qcodes = np.full((n, Q), 4, np.int8)
+    rcodes = np.full((n, R), 4, np.int8)
+    qlens = np.zeros(n, np.int32)
+    rlens = np.zeros(n, np.int32)
+    for b, (q, r) in enumerate(pairs):
+        qa = _CHAR_CODE[np.frombuffer(q.encode(), dtype=np.uint8)]
+        ra = _CHAR_CODE[np.frombuffer(r.encode(), dtype=np.uint8)]
+        qcodes[b, : len(qa)] = qa
+        rcodes[b, : len(ra)] = ra
+        qlens[b] = len(qa)
+        rlens[b] = len(ra)
+    return qcodes, rcodes, qlens, rlens
+
+
 class BatchAligner:
     """Pads string pairs into fixed (Q, R) buckets, runs K1 + K2 on
     `device` and turns the op streams into cigars identical to
@@ -103,25 +122,14 @@ class BatchAligner:
         return out
 
     def _align_bucket(self, pairs, idxs, Q, R, out):
-        B = len(idxs)
-        qcodes = np.full((B, Q), 4, np.int8)
-        rcodes = np.full((B, R), 4, np.int8)
-        qlens = np.zeros(B, np.int32)
-        rlens = np.zeros(B, np.int32)
-        for b, k in enumerate(idxs):
-            q, r = pairs[k]
-            qa = _CHAR_CODE[np.frombuffer(q.encode(), dtype=np.uint8)]
-            ra = _CHAR_CODE[np.frombuffer(r.encode(), dtype=np.uint8)]
-            qcodes[b, : len(qa)] = qa
-            rcodes[b, : len(ra)] = ra
-            qlens[b] = len(qa)
-            rlens[b] = len(ra)
+        qcodes, rcodes, qlens, rlens = encode_pairs([pairs[k] for k in idxs],
+                                                    Q, R)
         dev = self.device
         tb = nw_tb(torch.from_numpy(qcodes).to(dev),
                    torch.from_numpy(rcodes).to(dev), *self.params)
         T = 2 * (Q + R) + 2
-        em = nw_walk(tb, torch.from_numpy(qlens).to(dev),
-                     torch.from_numpy(rlens).to(dev), T).cpu().numpy()
+        em = nw_walk(tb, torch.from_numpy(qlens), torch.from_numpy(rlens),
+                     T).cpu().numpy()
         for b, k in enumerate(idxs):
             codes = em[b]
             codes = codes[codes > 0][::-1]

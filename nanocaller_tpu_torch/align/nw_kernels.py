@@ -4,7 +4,9 @@ PyTorch twins, and the nvcc build.
 - K1 `nw_tb` (csrc/nw_tb.cu) replaces the Pallas kernel
   nanocaller_tpu/align/pallas_nw.py::batch_nw_tb_pallas: the batched
   affine-gap DP, returning the (B, Q+1, R+1) uint8 traceback that
-  nanocaller_tpu/align/batch_nw.py::_batch_nw returns.
+  nanocaller_tpu/align/batch_nw.py::_batch_nw returns. One launch runs
+  one of two kernels, chosen by shape in the source: a lane-skewed
+  wavefront, or for short queries a row-by-row scan.
 - K2 `nw_walk` (csrc/nw_walk.cu) replaces
   nanocaller_tpu/align/batch_nw.py::_walk_device: the traceback walk,
   returning the (B, T) int8 op stream.
@@ -34,7 +36,7 @@ SOURCES = (os.path.join(_PKG, "csrc", "nw_tb.cu"),
            os.path.join(_PKG, "csrc", "nw_walk.cu"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # launch counters: each wrapper adds one where it launches its kernel
 NW_TB_LAUNCHES = 0
@@ -58,9 +60,10 @@ def _nvcc():
                        "in %s)" % os.path.dirname(SOURCES[0]))
 
 
-def build(verbose=False):
+def build():
     """Compile the kernel sources (if their hash changed) and return the
-    library path. One nvcc call builds both kernels into one .so."""
+    library path: one nvcc per source, all started together, then one
+    link into a .so."""
     h = hashlib.sha256()
     for src in SOURCES:
         with open(src, "rb") as fh:
@@ -70,20 +73,26 @@ def build(verbose=False):
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *SOURCES]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.remove(tmp)
-        raise RuntimeError("nvcc failed (%d):\n%s%s"
-                           % (res.returncode, res.stdout, res.stderr))
-    if verbose:
-        print(res.stdout + res.stderr, flush=True)
-    os.replace(tmp, lib)
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        nvcc = _nvcc()
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o")
+                for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o",
+                                   obj, src], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        results = [(p.communicate()[0], p.returncode) for p in procs]
+        so = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so,
+                               *objs], capture_output=True, text=True)
+        results.append((link.stdout + link.stderr, link.returncode))
+        for out, rc in results:
+            if rc != 0:
+                raise RuntimeError("nvcc failed (%d):\n%s" % (rc, out))
+        os.replace(so, lib)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return lib
 
 
@@ -94,7 +103,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.nw_tb_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
         lib.nw_tb_launch.restype = i
-        lib.nw_walk_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.nw_walk_launch.argtypes = [p, p, p, i, i, i, i, p]
         lib.nw_walk_launch.restype = i
         _LIB = lib
     return _LIB
@@ -199,17 +208,22 @@ def nw_tb_reference(qcodes, rcodes, match, mismatch, gap_open, gap_extend):
 # -- K2: traceback walk -------------------------------------------------------
 
 def nw_walk(tb, qlens, rlens, T):
-    """tb (B, Q+1, R+1) uint8, qlens/rlens (B,) int32 → (B, T) int8 op
-    codes (0 none, 1 diag, 2 ins, 3 del) in end→start order, step for
-    step as _walk_device emits them. T must be ≥ 2·(Q+R)+2."""
+    """tb (B, Q+1, R+1) uint8, qlens/rlens (B,) int32 CPU tensors → (B, T)
+    int8 op codes (0 none, 1 diag, 2 ins, 3 del) in end→start order, step
+    for step as _walk_device emits them. T must be ≥ 2·(Q+R)+2.
+
+    The lengths stay on the host, where the caller builds them: they are
+    range-checked there and copied to the card with the launch, so the
+    check costs no device round trip."""
     global NW_WALK_LAUNCHES
     _check(tb, "tb", torch.uint8, 3)
     _check(qlens, "qlens", torch.int32, 1)
     _check(rlens, "rlens", torch.int32, 1)
     B, Q1, R1 = tb.shape
-    if qlens.shape[0] != B or rlens.shape[0] != B or \
-            not (qlens.device == rlens.device == tb.device):
-        raise ValueError("nw_walk: batch or device mismatch")
+    if qlens.shape[0] != B or rlens.shape[0] != B:
+        raise ValueError("nw_walk: batch mismatch")
+    if qlens.device.type != "cpu" or rlens.device.type != "cpu":
+        raise ValueError("nw_walk: qlens and rlens must be CPU tensors")
     if T < 2 * (Q1 - 1 + R1 - 1) + 2:
         raise ValueError("nw_walk: T=%d < 2(Q+R)+2" % T)
     # the kernel would read outside the pair's matrix without a fault
@@ -222,12 +236,15 @@ def nw_walk(tb, qlens, rlens, T):
     ops = torch.empty((B, T), dtype=torch.int8, device=tb.device)
     if B == 0:
         return ops
+    # pinned, so that the copy is queued on the stream without a wait
+    lens = torch.stack((qlens, rlens)).pin_memory().to(tb.device,
+                                                       non_blocking=True)
     lib = _lib()
     with torch.cuda.device(tb.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.nw_walk_launch(tb.data_ptr(), qlens.data_ptr(),
-                                rlens.data_ptr(), ops.data_ptr(), B, Q1 - 1,
-                                R1 - 1, int(T), stream)
+        rc = lib.nw_walk_launch(tb.data_ptr(), lens.data_ptr(),
+                                ops.data_ptr(), B, Q1 - 1, R1 - 1, int(T),
+                                stream)
     if rc != 0:
         raise RuntimeError("nw_walk launch failed: cudaError %d" % rc)
     NW_WALK_LAUNCHES += 1

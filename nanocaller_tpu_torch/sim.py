@@ -227,3 +227,42 @@ def write_bam(path, contig, contig_len, reads, tags_by_name=None, mapq=60,
         for r in recs:
             w.write(r)
     return path
+
+
+TIE_KINDS = ("homopolymer", "str", "identical")
+
+
+def tie_heavy_pairs(rng, n, Q, R, kind):
+    """n (query, ref) string pairs whose NW traceback is decided by ties,
+    with len(query) <= Q and len(ref) <= R: "homopolymer" (a run of one
+    base between short random flanks, against the same with the run 1-3
+    bases shorter or longer), "str" (a short tandem repeat, ACAC... or
+    AAG..., against the same with one unit inserted or deleted) or
+    "identical" (equal random sequences)."""
+    if kind not in TIE_KINDS:
+        raise ValueError("kind must be one of %s" % (TIE_KINDS,))
+    cap = min(Q, R)
+    pairs = []
+    for _ in range(n):
+        if kind == "identical":
+            s = random_seq(rng, int(rng.integers(1, cap + 1)))
+            pairs.append((s, s))
+            continue
+        fl = int(rng.integers(0, min(8, cap // 4) + 1))
+        left, right = random_seq(rng, fl), random_seq(rng, fl)
+        if kind == "homopolymer":
+            unit = BASES[int(rng.integers(4))]
+            d = int(rng.integers(1, 4))
+        else:
+            unit = random_seq(rng, int(rng.integers(2, 5)))
+            d = 1
+        u = len(unit)
+        room = (cap - 2 * fl) // u  # units that fit the shorter bound
+        runs = max(d + 1, int(rng.integers(max(d + 1, room // 2),
+                                           max(d + 2, room + 1))))
+        a, b = runs, runs - d if rng.random() < 0.5 else runs + d
+        q = left + unit * a + right
+        r = left + unit * b + right
+        pairs.append((q[:Q], r[:R]))
+    return pairs
+

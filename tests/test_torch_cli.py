@@ -16,6 +16,7 @@ from nanocaller_tpu_torch.cli import config_from_args
 from nanocaller_tpu_torch.config import Config
 
 from fixtures import make_diploid_readset, random_seq, write_bam
+from torch_threads import _torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,7 @@
 """The CUDA kernels K1 (nw_tb) and K2 (nw_walk) against their plain twins
-on the card, exactly, at the main path's buckets. Skips without a GPU.
+on the card, exactly: at the main path's buckets, at the edges of K1's
+32-lane column strips, with a batch that leaves the last CTA part empty,
+with pad codes, and on tie-heavy pairs. Skips without a GPU.
 
 Imports neither jax nor the JAX package, so that it also runs where only
 the port is installed: `python -m pytest --noconftest tests/test_torch_gpu.py`.
@@ -10,10 +12,21 @@ import pytest
 import torch
 
 from nanocaller_tpu_torch.align import nw_kernels as K
-from nanocaller_tpu_torch.align.batch_nw import BatchAligner
+from nanocaller_tpu_torch.align.batch_nw import BatchAligner, encode_pairs
 from nanocaller_tpu_torch.align.nw import nw_align
+from nanocaller_tpu_torch.sim import TIE_KINDS, tie_heavy_pairs
+
+from torch_threads import _torch_threads  # noqa: F401 (autouse)
 
 SCORINGS = [(20, -10, 9, 1), (5, -4, 8, 1)]
+# R at the edges of the strips (K = ceil(R/32) columns per lane), each
+# with a one-row, a short and a main-path query
+EDGES = [(Q, R) for R in (1, 31, 32, 33, 63, 511, 512) for Q in (1, 7, 192)]
+# one shape for each compiled instance of K1: the wavefront with 4 pairs
+# a CTA (B = 531) and with one (B = 37), and the rows kernel (Q < 96)
+INSTANCES = ([(100, R, 531) for R in (64, 128, 256, 300, 512, 1023)]
+             + [(100, R, 37) for R in (64, 128, 192, 256, 320, 600)]
+             + [(50, R, 37) for R in (128, 256, 1023)])
 
 
 def _need_gpu():
@@ -24,27 +37,76 @@ def _need_gpu():
 def _codes(rng, B, n, pad_tail):
     c = rng.integers(0, 5, (B, n)).astype(np.int8)
     c[:, n - pad_tail:] = 4
-    return torch.from_numpy(c).cuda()
+    return c
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("Q,R", [(192, 192), (256, 192), (512, 512), (7, 1)])
-def test_kernels_match_twins(Q, R):
-    _need_gpu()
-    rng = np.random.default_rng(Q + R)
+def _check_both(q, r, ql, rl):
+    qc, rc = torch.from_numpy(q).cuda(), torch.from_numpy(r).cuda()
+    ql, rl = torch.from_numpy(ql), torch.from_numpy(rl)
+    Q, R = q.shape[1], r.shape[1]
+    T = 2 * (Q + R) + 2
     for params in SCORINGS:
-        qc = _codes(rng, 64, Q, pad_tail=min(7, Q - 1))
-        rc = _codes(rng, 64, R, pad_tail=min(2, R - 1))
         tb = K.nw_tb(qc, rc, *params)
         want = K.nw_tb_reference(qc, rc, *params)
         torch.cuda.synchronize()
         assert torch.equal(tb, want)
-        ql = torch.from_numpy(rng.integers(0, Q + 1, 64).astype(np.int32)).cuda()
-        rl = torch.from_numpy(rng.integers(0, R + 1, 64).astype(np.int32)).cuda()
-        T = 2 * (Q + R) + 2
         ops = K.nw_walk(tb, ql, rl, T)
         torch.cuda.synchronize()
-        assert torch.equal(ops, K.nw_walk_reference(tb, ql, rl, T))
+        assert torch.equal(ops, K.nw_walk_reference(tb, ql.cuda(),
+                                                    rl.cuda(), T))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,R,B,kind", [
+    (192, 192, 64, "random"), (256, 192, 64, "random"),
+    (512, 512, 64, "random"), (7, 1, 64, "random"),
+    # 531 fills 132 CTAs of 4 pairs and leaves 3 in the last
+    (192, 192, 531, "random"), (64, 192, 531, "random")]
+    + [(Q, R, 37, "random") for Q, R in EDGES]
+    + [(Q, R, B, "random") for Q, R, B in INSTANCES]
+    + [(Q, R, 96, kind) for kind in TIE_KINDS
+       for Q, R in ((192, 192), (64, 192), (33, 31))])
+def test_kernels_match_twins(Q, R, B, kind):
+    _need_gpu()
+    rng = np.random.default_rng(Q + R + B + len(kind))
+    if kind == "random":
+        # pad code 4 in both sequences, at random and in a padded tail
+        q = _codes(rng, B, Q, pad_tail=min(7, Q - 1))
+        r = _codes(rng, B, R, pad_tail=min(2, R - 1))
+        ql = rng.integers(0, Q + 1, B).astype(np.int32)
+        rl = rng.integers(0, R + 1, B).astype(np.int32)
+        _check_both(q, r, ql, rl)
+    else:
+        _check_both(*encode_pairs(tie_heavy_pairs(rng, B, Q, R, kind), Q, R))
+
+
+@pytest.mark.cuda
+def test_walk_range_check_without_sync():
+    """nw_walk checks the lengths on the host: a good call makes no
+    synchronizing CUDA call, bad lengths and CUDA lengths raise."""
+    _need_gpu()
+    rng = np.random.default_rng(3)
+    Q, R, B = 64, 48, 40
+    q, r = _codes(rng, B, Q, 0), _codes(rng, B, R, 0)
+    ql = torch.from_numpy(rng.integers(0, Q + 1, B).astype(np.int32))
+    rl = torch.from_numpy(rng.integers(0, R + 1, B).astype(np.int32))
+    T = 2 * (Q + R) + 2
+    tb = K.nw_tb(torch.from_numpy(q).cuda(), torch.from_numpy(r).cuda(),
+                 *SCORINGS[1])
+    K.nw_walk(tb, ql, rl, T)  # first call: builds, loads, pins
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops = K.nw_walk(tb, ql, rl, T)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(ops, K.nw_walk_reference(tb, ql.cuda(), rl.cuda(), T))
+    bad = ql.clone()
+    bad[B // 2] = Q + 1
+    with pytest.raises(ValueError, match="qlens"):
+        K.nw_walk(tb, bad, rl, T)
+    with pytest.raises(ValueError, match="CPU"):
+        K.nw_walk(tb, ql.cuda(), rl, T)
 
 
 @pytest.mark.cuda

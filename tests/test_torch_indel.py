@@ -20,6 +20,7 @@ from nanocaller_tpu_torch.pileup.indel_features import get_indel_candidates
 
 from fixtures import make_fixture
 from test_decompose_fuzz import mk_rec, random_alt
+from torch_threads import _torch_threads  # noqa: F401 (autouse)
 
 KW = dict(seq_type="ont", mincov=4, maxcov=160, ins_t=0.4, del_t=0.6,
           win_size=40, small_win_size=4)

@@ -9,8 +9,11 @@ import sys
 import pytest
 import torch
 
+from torch_threads import _torch_threads  # noqa: F401 (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "nanocaller_tpu_torch")
+
 
 _BLOCKED_IMPORTS = r"""
 import importlib, pkgutil, sys

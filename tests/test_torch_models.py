@@ -14,6 +14,8 @@ from nanocaller_tpu_torch.models import (HaploidIndelModel, IndelModel,
                                          load_model,
                                          torch_state_dict_from_params)
 
+from torch_threads import _torch_threads  # noqa: F401 (autouse)
+
 
 @pytest.mark.parametrize("name", INDEL_MODEL_NAMES)
 def test_indel_pack_matches_flax(name):

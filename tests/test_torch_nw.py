@@ -12,7 +12,12 @@ from nanocaller_tpu.align.batch_nw import _batch_nw, _walk_device
 from nanocaller_tpu.align.nw import nw_align
 from nanocaller_tpu.align.pallas_nw import batch_nw_tb_pallas
 from nanocaller_tpu_torch.align import nw_kernels as K
-from nanocaller_tpu_torch.align.batch_nw import BatchAligner, _traceback_matrix
+from nanocaller_tpu_torch.align.batch_nw import (BatchAligner,
+                                                 _traceback_matrix,
+                                                 encode_pairs)
+from nanocaller_tpu_torch.sim import TIE_KINDS, tie_heavy_pairs
+
+from torch_threads import _torch_threads  # noqa: F401 (autouse)
 
 SCORINGS = [(20, -10, 9, 1), (5, -4, 8, 1)]
 
@@ -45,11 +50,18 @@ def _mutate(rng, s, rate=0.1):
 
 class TestTbTwin:
     @pytest.mark.parametrize("params", SCORINGS)
-    @pytest.mark.parametrize("Q,R", [(48, 40), (31, 57), (40, 41)])
-    def test_vs_batch_nw(self, params, Q, R):
+    @pytest.mark.parametrize(
+        "Q,R,kind", [(48, 40, "random"), (31, 57, "random"),
+                     (40, 41, "random")] + [(48, 40, k) for k in TIE_KINDS],
+        ids=["48-40", "31-57", "40-41"] + ["48-40-" + k for k in TIE_KINDS])
+    def test_vs_batch_nw(self, params, Q, R, kind):
         rng = np.random.default_rng(Q * 100 + R)
-        qc = _codes(rng, 8, Q, pad_tail=5)
-        rc = _codes(rng, 8, R, pad_tail=3)
+        if kind == "random":
+            qc = _codes(rng, 8, Q, pad_tail=5)
+            rc = _codes(rng, 8, R, pad_tail=3)
+        else:  # the traceback is decided by ties
+            qc, rc, _, _ = encode_pairs(tie_heavy_pairs(rng, 8, Q, R, kind),
+                                        Q, R)
         _, want = _batch_nw(qc, rc, *params, Q, R)
         got = K.nw_tb(torch.from_numpy(qc), torch.from_numpy(rc), *params)
         assert got.dtype == torch.uint8 and got.shape == (8, Q + 1, R + 1)
@@ -69,15 +81,23 @@ class TestTbTwin:
 
 
 class TestWalkTwin:
-    @pytest.mark.parametrize("params", SCORINGS)
-    def test_vs_walk_device(self, params):
+    @pytest.mark.parametrize(
+        "params,kind", [(p, "random") for p in SCORINGS]
+        + [(p, k) for k in TIE_KINDS for p in SCORINGS],
+        ids=["params0", "params1"] + ["params%d-%s" % (n, k)
+                                      for k in TIE_KINDS for n in (0, 1)])
+    def test_vs_walk_device(self, params, kind):
         rng = np.random.default_rng(5)
         B, Q, R = 8, 40, 36
-        qc = _codes(rng, B, Q)
-        rc = _codes(rng, B, R)
-        qlens = rng.integers(0, Q + 1, B).astype(np.int32)
-        rlens = rng.integers(0, R + 1, B).astype(np.int32)
-        qlens[0] = rlens[1] = 0  # edge walks along one border
+        if kind == "random":
+            qc = _codes(rng, B, Q)
+            rc = _codes(rng, B, R)
+            qlens = rng.integers(0, Q + 1, B).astype(np.int32)
+            rlens = rng.integers(0, R + 1, B).astype(np.int32)
+            qlens[0] = rlens[1] = 0  # edge walks along one border
+        else:  # the walk follows tracebacks decided by ties
+            qc, rc, qlens, rlens = encode_pairs(
+                tie_heavy_pairs(rng, B, Q, R, kind), Q, R)
         _, tb = _batch_nw(qc, rc, *params, Q, R)
         T = 2 * (Q + R) + 2
         want = np.asarray(_walk_device(tb, jnp.asarray(qlens),
@@ -105,6 +125,28 @@ class TestWalkTwin:
         rl = torch.tensor([rlen], dtype=torch.int32)
         with pytest.raises(ValueError, match="qlens"):
             K.nw_walk(tb, ql, rl, 18)
+
+    def test_range_check_stays_on_the_host(self, monkeypatch):
+        """The lengths are CPU tensors, checked where they are: a good
+        pair walks, a bad one raises, and neither moves a tensor to
+        another device or reads one back."""
+        def no_move(self, *a, **kw):
+            raise AssertionError("nw_walk moved a tensor")
+
+        tb = torch.zeros((2, 5, 5), dtype=torch.uint8)
+        good = torch.tensor([4, 0], dtype=torch.int32)
+        monkeypatch.setattr(torch.Tensor, "to", no_move)
+        monkeypatch.setattr(torch.Tensor, "cuda", no_move)
+        monkeypatch.setattr(torch.Tensor, "item", no_move)
+        monkeypatch.setattr(K, "nw_walk_reference",
+                            lambda tb, ql, rl, T: torch.zeros((2, T)))
+        assert K.nw_walk(tb, good, good, 18).shape == (2, 18)
+        with pytest.raises(ValueError, match="qlens"):
+            K.nw_walk(tb, torch.tensor([5, 0], dtype=torch.int32), good, 18)
+        # lengths on another device are refused before any check
+        meta = torch.empty(2, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError):
+            K.nw_walk(tb, meta, good, 18)
 
 
 class TestBatchAligner:
