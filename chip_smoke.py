@@ -6,7 +6,8 @@
 Phases, each printing one JSON line per case:
 
 1. the card (nvidia-smi name and power limit) and the nvcc build of the
-   kernels from the sources in this checkout;
+   kernels from the sources in this checkout (one nvcc per source, all
+   started together);
 2. K1 nw_tb against its plain twin, exactly equal, with kernel, twin
    and bound times: at the buckets (192,192), (256,192), (512,512) with
    B = 1024 and both scoring sets; at the main path's launch shapes
@@ -17,13 +18,26 @@ Phases, each printing one JSON line per case:
    path finds it), with the longest walk's step count;
 4. the indel CNNs (diploid and haploid packs) on cuda against cpu,
    atol 2e-5, B = 256;
-5. the slice: a haplotagged fixture (one 1 Mb contig, ~30x, ONT-like
-   errors, planted het and hom indels) through
+5. the indel slice: a haplotagged fixture (one 1 Mb contig, ~30x,
+   ONT-like errors, planted het and hom indels) through
    `nanocaller_tpu_torch.cli --mode indels --cpu 1 --device cuda` with
    the launch counters reset just before and read just after, then the
    same command with --device cpu; the two indels.vcf.gz must agree;
    then the cuda run under torch.profiler, with the device time of K1's
-   two kernels and K2 on a line of its own.
+   two kernels and K2 on a line of its own;
+6. the SNP CNNs (ONT-HG002 and haploid packs) on cuda against cpu,
+   atol 2e-5, B = 4096;
+7. the SNP slice: one 4.2 Mb contig, 30x, 8 kb reads, 3% substitution
+   and 1% indel errors, a planted SNP every 1,000 bp (four two-member
+   decode groups and one single) through `--mode snps --cpu 1` on cuda
+   (counters reset just before, read just after) and on cpu; both VCFs
+   (unfiltered and PASS) must agree; then the cuda run under
+   torch.profiler, with K3's device time;
+8. K3 snp_pileup against its plain twin, exactly equal, with kernel,
+   twin and bound times, at the launches the main path makes for the
+   slice's first two decode groups, for a three-member group of the
+   fixture with maxcov 24 (deep rows, clamped windows), for a haploid
+   cohort, and for a synthetic payload with holes and dense exceptions.
 
 Then one JSON line with every kernel's launches, error and times, the
 nvidia-smi line, and as the last line
@@ -62,6 +76,19 @@ K1_OPS_PER_CELL = 17
 # the source extract, its == 0 test, i - 1, j - 1, the (i | j) != 0 end
 # test and the step counter
 K2_OPS_PER_STEP = 10
+# int32 operations per cell code the pileup needs, one each: the two
+# interval compares and their and; the hole row's and the exception row's
+# empty test; one binary-search step (mid add and shift, compare,
+# select); span_start + s, - lo, the byte index shift, the bit mask, the
+# byte shift, the & 1 and the minor/major select; the code < 4 test. It
+# needs the centre code of every covering read of a normal row (every
+# explicit id of a deep row) and the codes of the other valid columns of
+# every read whose centre code counts. How K3 finds the covering reads
+# (its O(B*N) scan) is its own cost, not the function's.
+K3_OPS_PER_CODE = 17
+# int32 operations per counted cell (a code 0-3 of a counted read), one
+# each: the counter address (two multiply-adds) and the add
+K3_OPS_PER_COUNT = 3
 BUCKETS = [(192, 192), (256, 192), (512, 512)]
 SCORINGS = {"allele": (20, -10, 9, 1), "msa": (5, -4, 8, 1)}
 B_NW = 1024
@@ -75,6 +102,13 @@ B_TIE = 256
 # to queue one timed loop
 SPIN_CYCLES = 40_000_000
 FIXTURE_LEN = 1_000_000
+# the SNP slice's contig: at --cpu 1 get_chunks makes nine chunks (eight
+# of 500,001 bp), and _group_adjacent's span cap total // 4 = 1,050,000
+# bp packs them into four two-member groups and one single
+SNP_FIXTURE_LEN = 4_200_000
+SNP_CNN_B = 4096
+# the pileup's centre column, the candidate site
+CENTER_COL = 20
 
 
 def emit(obj):
@@ -363,7 +397,12 @@ def phase_slice(K, tmp):
     if runs["cpu"][2]["NW_TB_LAUNCHES"] != 0:
         fail("the cpu run launched a CUDA kernel")
     n_rec, n_round = compare_vcfs(vcf_cuda, runs["cpu"][0])
-    profile = profile_slice(cli, tmp, bam_p, fasta_p)
+    argv = ["--bam", bam_p, "--ref", fasta_p, "--mode", "indels", "--cpu",
+            "1", "--device", "cuda", "--output", os.path.join(tmp, "out_prof"),
+            "--prefix", "smoke", "--sample", "S", "--suppress_progress_bar"]
+    prof, kern = profile_slice(cli, argv, ("nw_tb_rows_kernel",
+                                            "nw_tb_wave_kernel",
+                                            "nw_walk_kernel"))
     if n_rec < 1:
         fail("no indel records called")
     emit({"phase": "slice", "contig_bp": FIXTURE_LEN, "reads": n_reads,
@@ -374,20 +413,18 @@ def phase_slice(K, tmp):
           "rounding_cases": n_round, "cuda_wall_s": wall,
           "cuda_timers_s": metrics["timers_s"], "cpu_wall_s": runs["cpu"][1],
           "cpu_timers_s": runs["cpu"][3]["timers_s"], **counts})
-    for line in profile:
-        emit(line)
+    emit({"phase": "slice_profile", **prof})
+    emit({"phase": "slice_profile_nw_kernels", **kern})
     return counts
 
 
-def profile_slice(cli, tmp, bam_p, fasta_p):
-    """The cuda run once more under torch.profiler: device time by kernel
-    and the device's idle share of the run's wall time."""
+def profile_slice(cli, argv, kernel_names):
+    """A cuda run once more under torch.profiler: device time by kernel,
+    the named kernels' device time, and the device's idle share of the
+    run's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    argv = ["--bam", bam_p, "--ref", fasta_p, "--mode", "indels", "--cpu",
-            "1", "--device", "cuda", "--output", os.path.join(tmp, "out_prof"),
-            "--prefix", "smoke", "--sample", "S", "--suppress_progress_bar"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -401,14 +438,306 @@ def profile_slice(cli, tmp, bam_p, fasta_p):
     busy_s = sum(dev_us.values()) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
     kernels_us = {name: sum(v for k, v in dev_us.items() if name in k)
-                  for name in ("nw_tb_rows_kernel", "nw_tb_wave_kernel",
-                               "nw_walk_kernel")}
-    return {"phase": "slice_profile", "wall_s": wall,
-            "device_busy_s": busy_s if dev_us else None,
+                  for name in kernel_names}
+    return {"wall_s": wall, "device_busy_s": busy_s if dev_us else None,
             "device_idle_share": (1 - busy_s / wall) if dev_us else None,
             "device_us_by_name": {k: v for k, v in top}}, {
-                "phase": "slice_profile_nw_kernels", **kernels_us,
-                "sum_us": sum(kernels_us.values())}
+                **kernels_us, "sum_us": sum(kernels_us.values())}
+
+
+def phase_snp_models():
+    """Phase 6: the SNP packs on cuda against cpu, atol 2e-5."""
+    import numpy as np
+    import torch
+
+    from nanocaller_tpu_torch.models import (HaploidSNPModel, SNPModel,
+                                             load_model,
+                                             torch_state_dict_from_params)
+
+    rng = np.random.default_rng(6)
+    B = SNP_CNN_B
+    # pileup-like inputs: signed counts scaled as after normalisation
+    x = torch.from_numpy(
+        (rng.integers(-30, 31, (B, 5, 41, 5)) * 0.8).astype(np.float32))
+    x[:, 0] = torch.from_numpy(
+        rng.integers(0, 2, (B, 41, 5)).astype(np.float32))
+    ref = torch.from_numpy(
+        np.eye(4, dtype=np.float32)[rng.integers(0, 4, B)])
+    for name, cls in (("ONT-HG002", SNPModel), ("haploid", HaploidSNPModel)):
+        params, _ = load_model("snp", name)
+        sd = torch_state_dict_from_params(params)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            m = cls()
+            m.load_state_dict(sd)
+            m = m.to(dev).eval()
+            xd, rd = x.to(dev), ref.to(dev)
+            with torch.inference_mode():
+                out = m(xd, rd)
+                outs[dev] = torch.cat([o.reshape(B, -1) for o in out], 1) \
+                    if isinstance(out, tuple) else out
+                outs[dev] = outs[dev].cpu()
+                if dev == "cuda":
+                    ms = cuda_ms(lambda: m(xd, rd), 20)
+        err = float((outs["cuda"] - outs["cpu"]).abs().max())
+        emit({"phase": "snp_cnn", "pack": name, "B": B, "max_abs_err": err,
+              "atol": 2e-5, "cuda_forward_ms": ms})
+        if not err <= 2e-5:
+            fail("SNP CNN %s: cuda vs cpu max err %g > 2e-5" % (name, err))
+
+
+def write_snp_fixture(tmp):
+    import numpy as np
+
+    from nanocaller_tpu_torch.io.fasta import write_fasta
+    from nanocaller_tpu_torch.sim import (BASES, make_diploid_readset,
+                                          random_seq, write_bam)
+
+    rng = np.random.default_rng(2025)
+    L = SNP_FIXTURE_LEN
+    ref = random_seq(rng, L)
+    snps = []
+    for k, p in enumerate(range(500, L - 500, 1000)):
+        alt = BASES[(BASES.index(ref[p]) + 1 + k % 3) % 4]  # never the ref
+        snps.append((p, alt, ("het1", "het2", "hom")[k % 3]))
+    reads = make_diploid_readset(rng, ref, snps=snps, depth=30,
+                                 read_len=8000, error_rate=0.03,
+                                 indel_error_rate=0.01)
+    fasta_p = os.path.join(tmp, "snp_ref.fa")
+    bam_p = os.path.join(tmp, "snp_reads.bam")
+    write_fasta(fasta_p, {"chr_t": ref})
+    write_bam(bam_p, "chr_t", L, reads)
+    return fasta_p, bam_p, len(snps), len(reads)
+
+
+def compare_snp_vcfs(a, b):
+    """CHROM/POS/REF/ALT/FILTER/GT and every count identical; QUAL (%.3f)
+    and the PR and VF values (%.4f) may differ only by one unit of their
+    rounding (a small probability delta crossing a rounding boundary);
+    each such case is printed."""
+    ra, rb = _records(a), _records(b)
+    if len(ra) != len(rb):
+        fail("%s: cuda VCF has %d records, cpu VCF %d"
+             % (os.path.basename(a), len(ra), len(rb)))
+    diffs = []
+
+    def near(what, pos, u, v, unit):
+        if u == v:
+            return
+        if round(abs(float(u) - float(v)), 6) > unit:
+            fail("%s differs by more than one unit at %s: %s vs %s"
+                 % (what, pos, u, v))
+        diffs.append({"pos": int(pos), "field": what, "cuda": u, "cpu": v})
+
+    for x, y in zip(ra, rb):
+        if x[:5] != y[:5] or x[6] != y[6] or x[8] != y[8]:
+            fail("records differ: %s vs %s" % (x, y))
+        near("QUAL", x[1], x[5], y[5], 0.001)
+        ix, iy = dict(f.split("=") for f in x[7].split(";")), \
+            dict(f.split("=") for f in y[7].split(";"))
+        if ix["FQ"] != iy["FQ"]:
+            fail("FQ differs at %s" % x[1])
+        for u, v in zip(ix["PR"].split(","), iy["PR"].split(",")):
+            near("PR", x[1], u, v, 0.0001)
+        sx, sy = x[9].split(":"), y[9].split(":")
+        for k, (u, v) in enumerate(zip(sx, sy)):
+            if k == 2:  # VF
+                for uu, vv in zip(u.split(","), v.split(",")):
+                    near("VF", x[1], uu, vv, 0.0001)
+            elif u != v:
+                fail("sample field %d differs at %s: %s vs %s"
+                     % (k, x[1], x[9], y[9]))
+    return len(ra), diffs
+
+
+def phase_snp_slice(tmp):
+    """Phase 7: the port's CLI `--mode snps --cpu 1` on the card (counters
+    reset just before and read just after), then on the CPU; the VCFs
+    must agree. Then the cuda run under torch.profiler."""
+    from nanocaller_tpu_torch import cli
+    from nanocaller_tpu_torch.align import nw_kernels as K
+    from nanocaller_tpu_torch.pileup import snp_pileup as K3
+
+    t0 = time.perf_counter()
+    fasta_p, bam_p, n_planted, n_reads = write_snp_fixture(tmp)
+    t_fixture = time.perf_counter() - t0
+
+    def argv(dev, out):
+        return ["--bam", bam_p, "--ref", fasta_p, "--mode", "snps", "--cpu",
+                "1", "--device", dev, "--output", os.path.join(tmp, out),
+                "--prefix", "smoke", "--sample", "S",
+                "--suppress_progress_bar"]
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        K.reset_counters()
+        K3.reset_counters()
+        t0 = time.perf_counter()
+        outputs = cli.main(argv(dev, "snp_" + dev))
+        wall = time.perf_counter() - t0
+        counts = {"SNP_PILEUP_LAUNCHES": K3.SNP_PILEUP_LAUNCHES,
+                  "NW_TB_LAUNCHES": K.NW_TB_LAUNCHES}
+        with open(os.path.join(tmp, "snp_" + dev, "metrics.json")) as fh:
+            metrics = json.load(fh)
+        runs[dev] = (outputs["snps"], wall, counts, metrics)
+    pass_cuda, wall, counts, metrics = runs["cuda"]
+    if counts["SNP_PILEUP_LAUNCHES"] < 1:
+        fail("the SNP main path launched no K3: %s" % counts)
+    if runs["cpu"][2]["SNP_PILEUP_LAUNCHES"] != 0:
+        fail("the cpu run launched K3")
+    if metrics["counts"].get("snp_chunks", 0) < 2:
+        fail("fixture gave < 2 SNP chunks")
+    n_pass, d_pass = compare_snp_vcfs(pass_cuda, runs["cpu"][0])
+    unf = lambda p: p.replace(".snps.vcf.gz", ".unfiltered.snps.vcf.gz")
+    n_all, d_all = compare_snp_vcfs(unf(pass_cuda), unf(runs["cpu"][0]))
+    if n_pass < n_planted // 2:
+        fail("only %d PASS records for %d planted SNPs" % (n_pass, n_planted))
+    for d in d_all:
+        emit({"phase": "snp_slice_rounding_case", "vcf": "unfiltered", **d})
+    for d in d_pass:
+        emit({"phase": "snp_slice_rounding_case", "vcf": "pass", **d})
+    K3.reset_counters()
+    prof, kern = profile_slice(cli, argv("cuda", "snp_prof"),
+                               ("snp_pileup_kernel",))
+    emit({"phase": "snp_slice", "contig_bp": SNP_FIXTURE_LEN,
+          "reads": n_reads, "planted_snps": n_planted,
+          "fixture_s": t_fixture,
+          "chunks": metrics["counts"].get("snp_chunks"),
+          "candidates": metrics["counts"].get("snp_candidates"),
+          "records_unfiltered": n_all, "records_pass": n_pass,
+          "rounding_cases": len(d_all) + len(d_pass), "cuda_wall_s": wall,
+          "cuda_timers_s": metrics["timers_s"], "cpu_wall_s": runs["cpu"][1],
+          "cpu_timers_s": runs["cpu"][3]["timers_s"], **counts})
+    emit({"phase": "snp_slice_profile", **prof})
+    emit({"phase": "snp_slice_profile_k3", **kern,
+          "launches": K3.SNP_PILEUP_LAUNCHES})
+    return counts, fasta_p, bam_p
+
+
+def k3_cases(fasta_p, bam_p):
+    """Phase 8 inputs: (label, snp_pileup args, host payload) at the
+    launches the main path makes for the slice's first two decode groups,
+    a three-member group with maxcov 24, a haploid member, and a
+    synthetic payload with holes and dense exceptions."""
+    import numpy as np
+    import torch
+
+    from nanocaller_tpu_torch.cli import config_from_args
+    from nanocaller_tpu_torch.io.bam import BamReader
+    from nanocaller_tpu_torch.io.fasta import FastaFile
+    from nanocaller_tpu_torch.pileup import snp_pileup as K3
+    from nanocaller_tpu_torch.pileup.snp_features import \
+        get_snp_group_payload
+    from nanocaller_tpu_torch.runtime.chunker import (get_chunks,
+                                                      get_regions_list)
+    from nanocaller_tpu_torch.sim import random_group_wire
+    from nanocaller_tpu_torch.snp_caller import (SnpCallerState,
+                                                 _group_adjacent,
+                                                 pileup_cohorts)
+
+    cfg = config_from_args(["--bam", bam_p, "--ref", fasta_p, "--mode",
+                            "snps", "--cpu", "1"])
+    state = SnpCallerState.create(cfg.snp_model, device="cuda")
+    bam, fasta = BamReader(bam_p), FastaFile(fasta_p)
+    chunks = get_chunks(get_regions_list(cfg, bam), cfg.cpu)
+    groups = _group_adjacent(chunks, range(len(chunks)), cfg)
+
+    def cohorts(label, members, maxcov, ploidy="diploid"):
+        members = [dict(m, ploidy=ploidy) for m in members]
+        gf = get_snp_group_payload(
+            bam, fasta, members, seq_type=cfg.sequencing, mincov=cfg.mincov,
+            maxcov=maxcov, min_allele_freq=cfg.min_allele_freq,
+            min_nbr_sites=cfg.min_nbr_sites, threshold=cfg.threshold)
+        gf.members = [(i, sec) for i, (_m, sec) in enumerate(gf.members)]
+        for p, deep, args, _mi, _j in pileup_cohorts(state, gf, cfg):
+            yield "%s_%s%s" % (label, p, "_deep" if deep else ""), args, gf
+
+    for g in (0, 1):
+        yield from cohorts("main_group%d" % (g + 1),
+                           [c for _, c in groups[g]], cfg.maxcov)
+    three = chunks[:3]
+    for label, args, gf in cohorts("three_members", three, 24):
+        if not all(sec is not None and len(sec.deep_idx)
+                   for _, sec in gf.members):
+            fail("a member of the three-member group has no deep row")
+        yield label, args, gf
+    yield from cohorts("one_member", chunks[:1], cfg.maxcov, "haploid")
+    # about a decode group's size: 1,200 sites, 4,200 reads, 1,100 rows
+    wire, cand_site, soc, norm = random_group_wire(
+        np.random.default_rng(11), S=1200, N=4200, B=1100, max_span=40)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    args = (K3.group_wire(wire, "cuda"), t(cand_site), t(soc), t(norm),
+            None, None)
+    yield "synthetic_holes_exceptions", args, wire
+
+
+def k3_work(args, gf, x):
+    """What one K3 launch's pileup x needed, counted from this run's
+    inputs: the bytes of its inputs and output; the (row, read) pairs
+    whose centre code it needs (every covering read of a normal row, from
+    the host payload gf, or every explicit id of a deep row); the reads
+    that counted and their counted cells (rows 1-4, channels 0-3 of x hold
+    count * norm, flipped at the ref base; the centre column counts each
+    counted read once); the cell codes (the covering reads' centre codes
+    and the other valid columns of each counted read). K3's own read
+    scan (scanned_reads, every read of the group for each normal row) is
+    printed beside them but is not the function's work."""
+    import torch
+
+    from nanocaller_tpu_torch.pileup import snp_pileup as K3
+
+    wire, cand_site, soc, norm, rids, n_valid = args
+    if rids is None:
+        covering = int(K3.site_depth(gf)[cand_site.cpu().numpy()].sum())
+        scanned = x.shape[0] * wire.n_reads
+    else:
+        covering = scanned = int(torch.clamp(n_valid,
+                                             max=rids.shape[1]).sum())
+    cells = (x[:, 1:, :, :4].abs() / norm[:, None, None, None]).round()
+    counted_b = cells[:, :, CENTER_COL].sum(dim=(1, 2))
+    other_cols = (soc >= 0).sum(dim=1) - 1
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts
+                            if t is not None)
+    return {"scanned_reads": scanned, "covering_reads": covering,
+            "counted_reads": int(counted_b.sum()),
+            "counted_cells": int(cells.sum()),
+            "cell_codes": covering + int((counted_b * other_cols).sum()),
+            "bytes": nbytes(wire.tensors()) + nbytes(
+                (cand_site, soc, norm, rids, n_valid)) + nbytes((x,))}
+
+
+def phase_k3(fasta_p, bam_p, e2e_launches):
+    """Phase 8: K3 against its twin on the card, exact, with times."""
+    import torch
+
+    from nanocaller_tpu_torch.pileup import snp_pileup as K3
+
+    rows = []
+    for label, args, gf in k3_cases(fasta_p, bam_p):
+        wire, rids = args[0], args[4]
+        x = K3.snp_pileup(*args)
+        twin = K3.snp_pileup_reference(*args)
+        torch.cuda.synchronize()
+        err = float((x - twin).abs().max()) if x.numel() else 0.0
+        B = x.shape[0]
+        shape = {"inputs": label, "B": B, "N": wire.n_reads,
+                 "S": wire.n_sites, "E": wire.exc_rid.shape[0],
+                 "H": wire.hole_rid.shape[0],
+                 "deep_width": 0 if rids is None else rids.shape[1]}
+        if err != 0:
+            fail("K3 differs from its twin at %s (max err %g)" % (shape, err))
+        work = k3_work(args, gf, x)
+        ms = cuda_ms(lambda: K3.snp_pileup(*args), 10)
+        plain_ms = cuda_ms(lambda: K3.snp_pileup_reference(*args), 1)
+        row = {"phase": "K3_snp_pileup", **shape, "exact": True,
+               "max_abs_err": err, **work, "e2e_launches": e2e_launches,
+               "ms": ms, "plain_ms": plain_ms,
+               **bound(work["bytes"], work["cell_codes"] * K3_OPS_PER_CODE
+                       + work["counted_cells"] * K3_OPS_PER_COUNT)}
+        emit(row)
+        rows.append(row)
+        del x, twin
+    return rows
 
 
 def main():
@@ -444,6 +773,10 @@ def main():
     phase_models()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         counts = phase_slice(K, tmp)
+        phase_snp_models()
+        snp_counts, fasta_p, bam_p = phase_snp_slice(tmp)
+        k3_rows = phase_k3(fasta_p, bam_p,
+                           snp_counts["SNP_PILEUP_LAUNCHES"])
 
     def pick(phase):
         return next(r for r in rows if r["phase"] == phase and
@@ -451,8 +784,9 @@ def main():
                     (r["Q"], r["R"], r["scoring"]) == (192, 192, "msa"))
 
     k1, k2 = pick("K1_nw_tb"), pick("K2_nw_walk")
+    k3 = next(r for r in k3_rows if r["inputs"].startswith("main_group1"))
 
-    def max_err(phase):
+    def max_err(phase, rows=rows):
         return max(r["max_abs_err"] for r in rows if r["phase"] == phase)
 
     kernels = [
@@ -472,6 +806,16 @@ def main():
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None, "shape": "B=1024 Q=192 R=192 msa scoring"},
+        {"name": "snp_pileup", "route": "cuda",
+         "source": "nanocaller_tpu_torch/csrc/snp_pileup.cu",
+         "replaces": "nanocaller_tpu/snp_caller.py:483",
+         "launches": snp_counts["SNP_PILEUP_LAUNCHES"],
+         "max_abs_err": max_err("K3_snp_pileup", k3_rows),
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": None,
+         "shape": "B=%d rows, N=%d reads, S=%d sites (%s)"
+                  % (k3["B"], k3["N"], k3["S"], k3["inputs"])},
     ]
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels of the NW alignment path, their plain
-PyTorch twins, and the nvcc build.
+PyTorch twins, and the nvcc build of every kernel of the port.
 
 - K1 `nw_tb` (csrc/nw_tb.cu) replaces the Pallas kernel
   nanocaller_tpu/align/pallas_nw.py::batch_nw_tb_pallas: the batched
@@ -13,9 +13,11 @@ PyTorch twins, and the nvcc build.
 
 Each wrapper takes its plain twin (`nw_tb_reference`, `nw_walk_reference`)
 only for a tensor on the CPU; for a CUDA tensor it launches its kernel or
-raises. The kernels are built at first use with nvcc for sm_90a into
-nanocaller_tpu_torch/_build/ (a directory .gitignore lists), into a
-library named by the hash of the sources, and loaded with ctypes.
+raises. Every source in SOURCES (these two and K3 csrc/snp_pileup.cu,
+whose wrapper is pileup/snp_pileup.py) is built at first use with nvcc
+for sm_90a into nanocaller_tpu_torch/_build/ (a directory .gitignore
+lists), into one library named by the hash of the sources, and loaded
+with ctypes.
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ import torch
 NEG = -(1 << 28)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = (os.path.join(_PKG, "csrc", "nw_tb.cu"),
-           os.path.join(_PKG, "csrc", "nw_walk.cu"))
+SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in
+                ("nw_tb.cu", "nw_walk.cu", "snp_pileup.cu"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -105,6 +107,9 @@ def _lib():
         lib.nw_tb_launch.restype = i
         lib.nw_walk_launch.argtypes = [p, p, p, i, i, i, i, p]
         lib.nw_walk_launch.restype = i
+        lib.snp_pileup_launch.argtypes = [p] * 12 + [i, i, i] + [p] * 5 \
+            + [i, i, p, p]
+        lib.snp_pileup_launch.restype = i
         _LIB = lib
     return _LIB
 

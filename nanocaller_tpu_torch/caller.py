@@ -1,18 +1,24 @@
-"""End-to-end orchestration of the port: `--mode indels --cpu 1`.
+"""End-to-end orchestration of the port: `--mode snps --cpu 1` (without
+--phase) and `--mode indels --cpu 1`.
 
-The inline indel path of nanocaller_tpu/caller.py::run, with the same
-output contract for that mode:
+The inline paths of nanocaller_tpu/caller.py::run, with the same output
+contract for those modes:
 
-    PREFIX.indels.vcf.gz            decomposed non-SNP calls
+    PREFIX.unfiltered.snps.vcf.gz   all SNP candidate records (snps)
+    PREFIX.snps.vcf.gz              PASS SNP calls (snps)
+    PREFIX.indels.vcf.gz            decomposed non-SNP calls (indels)
 
-BAM → candidates (host decode + scan) → read-vs-ref and allele NW on the
-device (kernels K1 + K2) → indel CNN → decode → rtg-style decomposition.
-The input BAM is expected to be haplotagged (HP/PS), as the reference's
-indel stage reads it. `--resume` reuses completed chunks through the run
-manifest.
+snps: BAM → one observation payload per decode group (host decode +
+scan) → neighbour selection and pileups on the device (kernel K3) → SNP
+CNN → genotype decode (snp_caller.py).
+indels: BAM → candidates (host decode + scan) → read-vs-ref and allele
+NW on the device (kernels K1 + K2) → indel CNN → decode → rtg-style
+decomposition. The input BAM is expected to be haplotagged (HP/PS), as
+the reference's indel stage reads it.
 
-Other modes and `--cpu N > 1` raise NotImplementedError naming the
-ROADMAP item that brings them.
+`--resume` reuses completed chunks through the run manifest. Other
+modes and `--cpu N > 1` raise NotImplementedError naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
@@ -31,15 +37,16 @@ from .pileup.indel_features import get_indel_candidates
 from .runtime.chunker import get_chunks, get_regions_list
 from .runtime.metrics import Metrics
 from .runtime.scheduler import Progress, RunManifest
+from .snp_caller import call_snps
 
 
 def _check_supported(cfg):
-    if cfg.mode != "indels":
+    if cfg.mode == "all" or (cfg.mode == "snps" and cfg.phase):
         raise NotImplementedError(
-            "--mode %s is not ported yet: the port runs --mode indels; the "
-            "SNP path and phasing are ROADMAP queue A items A2-A3 "
-            "(SNP group path, then --mode all --cpu 1 with phasing)"
-            % cfg.mode)
+            "--mode %s%s is not ported yet: the port runs --mode snps "
+            "(without --phase) and --mode indels; phasing is ROADMAP queue "
+            "A item A3 (--mode all --cpu 1 with phasing)"
+            % (cfg.mode, " --phase" if cfg.phase else ""))
     if cfg.cpu != 1:
         raise NotImplementedError(
             "--cpu %d is not ported yet: the port runs --cpu 1; feature "
@@ -56,7 +63,8 @@ def _check_supported(cfg):
 def run(cfg: Config, progress=None):
     """Execute the configured pipeline; returns dict of output paths."""
     _check_supported(cfg)
-    state = IndelCallerState.create(cfg.indel_model, device=cfg.device)
+    state = IndelCallerState.create(cfg.indel_model, device=cfg.device) \
+        if cfg.mode == "indels" else None
 
     os.makedirs(cfg.output, exist_ok=True)
     cfg.dump(os.path.join(cfg.output, "args"))
@@ -87,7 +95,27 @@ def run(cfg: Config, progress=None):
 
     regions_list = get_regions_list(cfg, bam)
     outputs = {"snps": None, "phased_snps": None, "indels": None, "final": None}
+    if cfg.mode == "snps":
+        chunks = get_chunks(regions_list, cfg.cpu)
+        with metrics.timer("snp_calling"):
+            outputs["snps"] = call_snps(
+                cfg, bam, fasta, regions_list, chunks, cfg.output,
+                exclude=exclude, progress=progress, manifest=manifest,
+                metrics=metrics)
+        metrics.count("snp_chunks", len(chunks))
+    else:
+        outputs["indels"] = _call_indels(cfg, state, bam, fasta,
+                                         regions_list, exclude, manifest,
+                                         metrics, progress)
+    if owns_progress:
+        bar.close()
+    metrics.dump(os.path.join(cfg.output, "metrics.json"))
+    return outputs
 
+
+def _call_indels(cfg, state, bam, fasta, regions_list, exclude, manifest,
+                 metrics, progress):
+    """The inline indel stage; returns the indels.vcf.gz path."""
     # contig extents (indelCaller.py:299-305)
     contigs = {}
     for c, s, e, ploidy in regions_list:
@@ -180,9 +208,4 @@ def run(cfg: Config, progress=None):
         _flush()
     metrics.count("indel_chunks", len(ordered_chunks))
     chunk_lines = [results.get(i, []) for i in range(len(ordered_chunks))]
-    outputs["indels"] = write_indel_vcf(cfg, list(contigs), chunk_lines,
-                                        cfg.output)
-    if owns_progress:
-        bar.close()
-    metrics.dump(os.path.join(cfg.output, "metrics.json"))
-    return outputs
+    return write_indel_vcf(cfg, list(contigs), chunk_lines, cfg.output)

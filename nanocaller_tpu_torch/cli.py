@@ -59,13 +59,11 @@ def build_parser():
     cfgg.add_argument("--watchdog", type=int, default=0, metavar="SECONDS",
                       help="stall supervision (not ported; must be 0)")
     cfgg.add_argument("--no_dedup_transfer", action="store_true",
-                      help="disable the deduplicated chunk transfer for "
-                           "SNP inference (ship dense per-candidate "
-                           "matrices instead; debug/oracle path)")
+                      help="the dense per-candidate SNP oracle path of "
+                           "the JAX CLI (not ported yet: raises)")
     cfgg.add_argument("--no_snp_group_payload", action="store_true",
-                      help="disable group-level SNP device payloads "
-                           "(ship one payload per 500 kb member instead "
-                           "of one per decode group; debug path)")
+                      help="one SNP payload per 500 kb member instead of "
+                           "one per decode group (not ported yet: raises)")
     cfgg.add_argument("--snp_pipeline_depth", type=int, default=1,
                       help="dispatched-but-unsynced SNP inference units "
                            "riding the device queue (deeper hides "
@@ -73,7 +71,7 @@ def build_parser():
                            "output is order-invariant)")
     cfgg.add_argument("--profile", action="store_true",
                       help="SNP-stage trace (accepted for compatibility; "
-                           "the SNP stage is not ported yet).")
+                           "not ported: use torch.profiler around run).")
     cfgg.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                       help="torch device of the port (the counterpart of "
                            "the JAX CLI's JAX_PLATFORMS); cuda without a "

@@ -62,11 +62,15 @@ class Config:
     # curves behind this choice.
     phase_cell_budget: int = 600_000_000
     # framework extras (not in reference)
-    # padded per-device batch for SNP inference (SNP slice, not ported yet)
+    # rows per SNP CNN forward (snp_caller.infer_snp_group); no padding
     batch_size: int = 4096
-    # SNP device-path options, kept so the JAX CLI's configs load as-is
+    # SNP device-path options of the JAX CLI. The port serves the group
+    # payload path only: False for either raises NotImplementedError
+    # (the per-chunk and dense oracle paths are ROADMAP A2's remainder)
     dedup_transfer: bool = True
     snp_group_payload: bool = True
+    # decode groups whose launches are queued before the oldest one's
+    # device→host copy and decode (output is order-invariant)
     snp_pipeline_depth: int = 1
     suppress_progress: bool = False
     verbose: bool = False
@@ -82,7 +86,7 @@ class Config:
     coordinator: str = ""
     num_processes: int = 1
     process_id: int = 0
-    profile: bool = False  # SNP-stage trace (SNP slice, not ported yet)
+    profile: bool = False  # SNP-stage trace of the JAX CLI (not ported)
     # torch device of the port: "cuda" (default) or "cpu"; "cuda" without
     # a GPU raises (runtime/device.py)
     device: str = "cuda"

@@ -1,6 +1,7 @@
-"""PyTorch indel models + weight import (the flax packs of the JAX package,
-read by path)."""
+"""PyTorch indel and SNP models + weight import (the flax packs of the JAX
+package, read by path)."""
 
 from .indel import HaploidIndelModel, IndelModel
 from .registry import load_model
+from .snp import HaploidSNPModel, SNPModel
 from .weights import torch_state_dict_from_params

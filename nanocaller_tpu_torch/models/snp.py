@@ -1,0 +1,84 @@
+"""SNP calling CNNs (diploid + haploid) as torch nn.Modules.
+
+Same networks as nanocaller_tpu/models/snp.py (flax):
+- diploid  SNPModel         input (B,5,41,5) pileup + (B,4) ref one-hot;
+  four per-base 2-way heads A, G, T, C and a 2-way GT head
+- haploid  HaploidSNPModel  same input; one 4-way softmax over A/G/T/C
+
+The public layout stays NHWC as in the JAX package; the trunk permutes
+to NCHW for torch's convolutions and back to NHWC before flattening, so
+fc1 sees its 3·9·64 = 1,728 inputs in the flax order. Flax's SAME
+padding for odd kernels is symmetric: conv1_1 (1,5), conv1_2 (5,1) and
+conv1_3 (5,5) pad (0,2), (2,0) and (2,2). Load weights with
+models.weights.torch_state_dict_from_params.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class _Trunk(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.conv1_1 = nn.Conv2d(5, 16, (1, 5), padding=(0, 2))
+        self.conv1_2 = nn.Conv2d(5, 16, (5, 1), padding=(2, 0))
+        self.conv1_3 = nn.Conv2d(5, 16, (5, 5), padding=(2, 2))
+        self.conv2 = nn.Conv2d(48, 32, (2, 3), stride=(1, 2))
+        self.conv3 = nn.Conv2d(32, 64, (2, 3), stride=(1, 2))
+        self.fc1 = nn.Linear(3 * 9 * 64, 48)
+
+    def trunk(self, x):
+        x = x.permute(0, 3, 1, 2)  # NHWC → NCHW
+        m = torch.cat([F.selu(self.conv1_1(x)), F.selu(self.conv1_2(x)),
+                       F.selu(self.conv1_3(x))], dim=1)
+        m = F.selu(self.conv2(m))
+        m = F.selu(self.conv3(m))
+        flat = m.permute(0, 2, 3, 1).reshape(m.shape[0], -1)  # NHWC order
+        return F.selu(self.fc1(flat))
+
+
+class SNPModel(_Trunk):
+    """Diploid SNP model: conv trunk + 4 per-base heads + GT head."""
+
+    def __init__(self):
+        super().__init__()
+        self.fa = nn.Linear(48, 16)
+        self.A = nn.Linear(17, 2)
+        self.G = nn.Linear(17, 2)
+        self.T = nn.Linear(17, 2)
+        self.C = nn.Linear(17, 2)
+        self.fc2 = nn.Linear(48, 16)
+        self.fc3 = nn.Linear(16 + 4 * 2, 8)
+        self.GT = nn.Linear(8, 2)
+
+    def forward(self, x, ref):
+        """x: (B,5,41,5) float32; ref: (B,4) one-hot of the candidate's
+        ref base → (probs (B,4,2) of the A,G,T,C heads, gt (B,2))."""
+        fc1 = self.trunk(x)
+        fa = F.selu(self.fa(fc1))
+        outs = [torch.softmax(head(torch.cat([fa, ref[:, i:i + 1]], dim=1)),
+                              dim=-1)
+                for i, head in enumerate((self.A, self.G, self.T, self.C))]
+        fc2 = F.selu(self.fc2(fc1))
+        fc3 = F.selu(self.fc3(torch.cat([fc2] + outs, dim=1)))
+        return torch.stack(outs, dim=1), torch.softmax(self.GT(fc3), dim=-1)
+
+
+class HaploidSNPModel(_Trunk):
+    """Haploid SNP model: same trunk, one 4-way softmax over A/G/T/C."""
+
+    def __init__(self):
+        super().__init__()
+        self.fc2 = nn.Linear(48, 16)
+        self.fc3 = nn.Linear(16 + 4, 4)
+
+    def forward(self, x, ref):
+        """x: (B,5,41,5) float32; ref: (B,4) → (B,4) base probabilities."""
+        fc2 = F.selu(self.fc2(self.trunk(x)))
+        # selu THEN softmax, as the flax model and the reference do
+        # (nanocaller_tpu/models/snp.py:69-72)
+        return torch.softmax(F.selu(self.fc3(torch.cat([fc2, ref], dim=1))),
+                             dim=-1)

@@ -11,6 +11,9 @@ Base codes follow the reference's map A=0, G=1, T=2, C=3, other=4
 position of the PRECEDING aligned base, matching pysam's pileup-string
 convention ("A+3TTT" appears on the column before the inserted bases).
 
+From these, per-column counts and per-site read codes are pure
+vectorized reductions (column_counts, site_read_codes, SiteCodes).
+
 The port keeps only the numpy decode of nanocaller_tpu/pileup/engine.py
 (the JAX package's oracle for its C++ decoder, pinned to it by that
 package's tests/test_native.py); the native library is a later slice.
@@ -29,6 +32,11 @@ BASE_CODE_LUT = np.full(256, 4, dtype=np.int8)
 for _b, _c in (("A", 0), ("G", 1), ("T", 2), ("C", 3)):
     BASE_CODE_LUT[ord(_b)] = _c
     BASE_CODE_LUT[ord(_b.lower())] = _c
+
+OTHER = 4
+# column-count channels: A,G,T,C,N(aligned non-AGTC),DEL
+CH_DEL = 5
+N_COUNT_CH = 6
 
 
 @dataclass
@@ -151,3 +159,115 @@ def decode_reads(bam, contig, start, end, flag_exclude=None, keep_seq=False):
         ins_len=np.asarray(ins_len, np.int32),
         seqs=seqs,
     )
+
+
+def column_counts(rw: ReadWindow, start, end):
+    """Per-column base counts over [start, end) (0-based).
+
+    Returns counts int32[(end-start), 6] with channels A,G,T,C,N,DEL.
+    ``n_aligned`` (pysam get_num_aligned semantics: non-deletion entries)
+    is counts[:, :5].sum(-1).
+    """
+    width = end - start
+    m = (rw.ev_pos >= start) & (rw.ev_pos < end)
+    # bincount over a fused (pos, code) index — far faster than np.add.at
+    fused = (rw.ev_pos[m] - start) * N_COUNT_CH + rw.ev_code[m]
+    counts = np.bincount(fused, minlength=width * N_COUNT_CH).astype(np.int32)
+    counts = counts.reshape(width, N_COUNT_CH)
+    # deletion-covered columns via interval diff + prefix sum
+    if len(rw.del_rid):
+        ds = np.maximum(rw.del_start, start)
+        de = np.minimum(rw.del_start + rw.del_len, end)
+        keep = de > ds
+        if keep.any():
+            diff = np.bincount(ds[keep] - start, minlength=width + 1)
+            diff -= np.bincount(de[keep] - start, minlength=width + 1)
+            counts[:, CH_DEL] += np.cumsum(diff[:-1]).astype(np.int32)
+    return counts
+
+
+def _ragged_arange(lengths):
+    """[0..l0), [0..l1), ... concatenated."""
+    total = int(lengths.sum())
+    out = np.ones(total, dtype=np.int64)
+    out[0] = 0
+    ends = np.cumsum(lengths)[:-1]
+    out[ends] = -(lengths[:-1] - 1)
+    return np.cumsum(out)
+
+
+def site_read_codes(rw: ReadWindow, sites):
+    """Sparse per-site read membership: which reads show which code at each site.
+
+    sites: sorted int64 array of 0-based positions.
+    Returns (site_idx int32[S], rid int32[S], code int8[S]) sorted by
+    (site_idx, rid). Deletion-spanning reads get code 4 ('*' in the
+    reference's pileup strings, generate_SNP_pileups.py:104).
+    """
+    sites = np.asarray(sites, dtype=np.int64)
+    # bitmap prefilter: one O(E) gather instead of an O(E log S)
+    # searchsorted over all events (events vastly outnumber site hits)
+    if len(sites):
+        lo, hi = int(sites[0]), int(sites[-1]) + 1
+        bitmap = np.zeros(hi - lo, dtype=bool)
+        bitmap[sites - lo] = True
+        in_range = (rw.ev_pos >= lo) & (rw.ev_pos < hi)
+        hit = np.zeros(len(rw.ev_pos), dtype=bool)
+        hit[in_range] = bitmap[rw.ev_pos[in_range] - lo]
+    else:
+        hit = np.zeros(len(rw.ev_pos), dtype=bool)
+    hit_pos = rw.ev_pos[hit]
+    # search against an int32 view of the (small) site list: the needle
+    # arrays are int32 and can be tens of millions long — a mixed-dtype
+    # searchsorted would promote-copy every needle array
+    sites32 = sites.astype(np.int32)
+    idx = np.searchsorted(sites32, hit_pos)
+    s_idx = [idx.astype(np.int32)]
+    s_rid = [rw.ev_rid[hit]]
+    s_code = [rw.ev_code[hit]]
+    if len(rw.del_rid):
+        lo = np.searchsorted(sites32, rw.del_start, side="left")
+        hi = np.searchsorted(sites32, rw.del_start + rw.del_len, side="left")
+        span = hi - lo
+        keep = span > 0
+        if keep.any():
+            sidx = (np.repeat(lo[keep], span[keep]) + _ragged_arange(span[keep])).astype(np.int32)
+            s_idx.append(sidx)
+            s_rid.append(np.repeat(rw.del_rid[keep], span[keep]))
+            s_code.append(np.full(len(sidx), OTHER, np.int8))
+    site_idx = np.concatenate(s_idx)
+    rid = np.concatenate(s_rid)
+    code = np.concatenate(s_code)
+    if len(site_idx) and int(rid.max()) < (1 << 24):
+        # pack (site, rid, code) into one uint64 key and sort it
+        # directly: one cache-friendly np.sort + vectorized unpack is ~10x
+        # faster than a lexsort + three permutation gathers. (site, rid)
+        # pairs are unique — a read has one observation per site — so
+        # the order matches the lexsort.
+        key = ((site_idx.astype(np.uint64) << np.uint64(32))
+               | (rid.astype(np.uint64) << np.uint64(8))
+               | (code.astype(np.uint8).astype(np.uint64)))
+        key.sort()
+        site_idx = (key >> np.uint64(32)).astype(np.int32)
+        rid = ((key >> np.uint64(8)) & np.uint64(0xFFFFFF)).astype(np.int32)
+        code = (key & np.uint64(0xFF)).astype(np.uint8).astype(np.int8)
+        return site_idx, rid, code
+    order = np.lexsort((rid, site_idx))
+    return site_idx[order], rid[order], code[order]
+
+
+class SiteCodes:
+    """CSR-style view over site_read_codes output for fast per-site lookup."""
+
+    def __init__(self, rw: ReadWindow, sites):
+        self.sites = np.asarray(sites, dtype=np.int64)
+        site_idx, rid, code = site_read_codes(rw, self.sites)
+        self.rid = rid
+        self.code = code
+        self.indptr = np.searchsorted(
+            site_idx, np.arange(len(self.sites) + 1, dtype=site_idx.dtype))
+
+    def at(self, site_i):
+        """(rids sorted asc, codes) for site index site_i."""
+        lo, hi = self.indptr[site_i], self.indptr[site_i + 1]
+        return self.rid[lo:hi], self.code[lo:hi]

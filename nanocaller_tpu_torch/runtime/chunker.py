@@ -65,3 +65,36 @@ def get_chunks(regions_list, cpu, max_chunk_size=500000, min_chunk_size=10000):
                 "ploidy": ploidy,
             })
     return chunks
+
+
+def group_adjacent_chunks(ordered_chunks, todo, span_cap):
+    """Pack coordinate-adjacent pending chunks into shared-decode groups
+    (one decoded window per group; see pileup.snp_features._scan_group).
+    Groups never span contigs, gaps (e.g. chunks completed by --resume),
+    or ploidy changes, and accumulate at most span_cap bases. Returns a
+    list of groups, each a list of (idx, chunk)."""
+    groups = []
+    cur = []
+    cur_span = 0
+    for i in todo:
+        c = ordered_chunks[i]
+        span = c["end"] - c["start"] + 1
+        if cur:
+            prev = cur[-1][1]
+            # chunker emits start == previous end (1-based overlap-by-one
+            # parity quirk); plain disjoint adjacency groups just as well.
+            # sam_path/tags_path must match too: a group decodes from
+            # members[0]'s source only
+            adjacent = (c["chrom"] == prev["chrom"]
+                        and prev["end"] <= c["start"] <= prev["end"] + 1
+                        and c.get("ploidy") == prev.get("ploidy")
+                        and c.get("sam_path") == prev.get("sam_path")
+                        and c.get("tags_path") == prev.get("tags_path"))
+            if not adjacent or cur_span + span > span_cap:
+                groups.append(cur)
+                cur, cur_span = [], 0
+        cur.append((i, c))
+        cur_span += span
+    if cur:
+        groups.append(cur)
+    return groups

@@ -9,6 +9,8 @@ chip_smoke.py needs to write its fixture (same draws from the same seed).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 
 from .io.bam import AlignedRead, BamWriter
@@ -266,3 +268,55 @@ def tie_heavy_pairs(rng, n, Q, R, kind):
         pairs.append((q[:Q], r[:R]))
     return pairs
 
+
+
+def random_group_wire(rng, S, N, B, max_span=None, bitmask=True,
+                      exc_share=0.5, hole_share=1 / 6):
+    """A random SNP group payload with B candidate rows, for holding the
+    pileup kernel K3 against its twin: S union sites; N reads, a tenth of
+    them with no observation (lo = 1 > hi = 0), the others covering spans
+    of at most max_span sites (default S); random site codes 0-4; a random
+    minor-bit mask over all spans (none without `bitmask`); among the
+    covered cells up to exc_share of them as exceptions with random codes
+    and up to hole_share as holes (disjoint, each sorted by (site, rid)).
+    Rows: random centre sites, random columns with a fifth of them padding
+    (−1), random coverage scales.
+
+    Returns (wire, cand_site, soc, norm): wire holds host arrays under
+    SnpGroupFeatures' field names (pileup.snp_pileup.group_wire takes
+    it)."""
+    max_span = max_span or S
+    lo = rng.integers(0, S, N)
+    hi = np.minimum(lo + rng.integers(0, max_span, N), S - 1)
+    empty = rng.random(N) < 0.1
+    lo = np.where(empty, 1, lo).astype(np.int32)
+    hi = np.where(empty, 0, hi).astype(np.int32)
+    spans = np.maximum(hi.astype(np.int64) - lo + 1, 0)
+    total = int(spans.sum())
+    minor_bits = (rng.integers(0, 256, (total + 7) // 8).astype(np.uint8)
+                  if bitmask else np.zeros(0, np.uint8))
+    # every covered cell as a (site, rid) key, in key order
+    rid = np.repeat(np.arange(N, dtype=np.int64), spans)
+    site = (np.repeat(lo.astype(np.int64), spans) + np.arange(total)
+            - np.repeat(np.cumsum(spans) - spans, spans))
+    keys = np.sort(site * N + rid)
+    perm = rng.permutation(total)
+    n_exc = int(rng.integers(0, int(total * exc_share) + 1))
+    n_hole = int(rng.integers(0, int(total * hole_share) + 1))
+    exc = np.sort(keys[perm[:n_exc]])
+    hole = np.sort(keys[perm[n_exc:n_exc + n_hole]])
+    i32 = lambda a: a.astype(np.int32)
+    wire = SimpleNamespace(
+        read_lo=lo, read_hi=hi,
+        site_ref=rng.integers(0, 5, S).astype(np.int8),
+        site_major=rng.integers(0, 5, S).astype(np.int8),
+        site_minor=rng.integers(0, 5, S).astype(np.int8),
+        minor_bits=minor_bits, exc_site=i32(exc // N), exc_rid=i32(exc % N),
+        exc_code=rng.integers(0, 5, n_exc).astype(np.int8),
+        hole_site=i32(hole // N), hole_rid=i32(hole % N))
+    cand_site = rng.integers(0, S, B).astype(np.int32)
+    soc = rng.integers(0, S, (B, 41)).astype(np.int32)
+    soc[rng.random((B, 41)) < 0.2] = -1
+    soc[:, 20] = cand_site
+    norm = rng.uniform(0.3, 3.0, B).astype(np.float32)
+    return wire, cand_site, soc, norm

@@ -1,8 +1,13 @@
-"""`--mode indels --cpu 1` end to end: the port's run(cfg) on the CPU
-against the JAX package's caller.run on a small haplotagged fixture.
-The decompressed indels.vcf.gz bytes must be identical."""
+"""`--mode indels --cpu 1` and `--mode snps --cpu 1` end to end: the
+port's run(cfg) on the CPU against the JAX package's caller.run, on a
+small haplotagged fixture (indels) and on one with planted SNPs (snps).
+The decompressed VCF bytes must be identical: indels.vcf.gz, and
+unfiltered.snps.vcf.gz with snps.vcf.gz. On these seeds no probability
+delta crosses a %.3f / %.4f rounding, so no one-unit allowance is
+needed."""
 
 import gzip
+import json
 import os
 
 import numpy as np
@@ -15,7 +20,7 @@ from nanocaller_tpu_torch.caller import run
 from nanocaller_tpu_torch.cli import config_from_args
 from nanocaller_tpu_torch.config import Config
 
-from fixtures import make_diploid_readset, random_seq, write_bam
+from fixtures import make_diploid_readset, make_fixture, random_seq, write_bam
 from torch_threads import _torch_threads  # noqa: F401 (autouse)
 
 
@@ -69,8 +74,39 @@ def test_cli_flags(fixture):
     assert config_from_args(["--bam", bam_p, "--ref", fasta_p]).device == "cuda"
 
 
-@pytest.mark.parametrize("change", [dict(mode="all"), dict(mode="snps"),
-                                    dict(cpu=2)])
+@pytest.fixture(scope="module")
+def snp_fixture(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_cli_snp")
+    fasta_p, bam_p, _, _ = make_fixture(tmp, seed=13, L=30000, depth=30,
+                                        read_len=2000, error_rate=0.03)
+    return str(tmp), fasta_p, bam_p
+
+
+def test_snp_vcfs_identical_to_jax_cli(snp_fixture):
+    # batch_size 128 on both sides keeps the JAX package's CPU compile short
+    kw = lambda out: dict(_kw(snp_fixture, out), mode="snps", batch_size=128)
+    j_run(JConfig(**kw("jax")))
+    got = run(Config(device="cpu", **kw("port")))
+    names = ("p.unfiltered.snps.vcf.gz", "p.snps.vcf.gz")
+    path = lambda out, name: os.path.join(snp_fixture[0], out, name)
+    data = [_vcf(path("port", n)) for n in names]
+    assert data == [_vcf(path("jax", n)) for n in names]
+    assert got["snps"] == path("port", names[1]) and got["indels"] is None
+    assert data[1].count(b"\tPASS\t") >= 10
+    with open(path("port", "metrics.json")) as fh:
+        timers = json.load(fh)["timers_s"]
+    assert {"snp_calling", "snp.features", "snp.infer_decode"} <= set(timers)
+    # --resume reuses the manifest's shards; a deeper pipeline changes no
+    # byte either
+    for extra in (dict(resume=True), dict(snp_pipeline_depth=3)):
+        run(Config(device="cpu", **kw("port"), **extra))
+        assert [_vcf(path("port", n)) for n in names] == data
+
+
+@pytest.mark.parametrize("change", [
+    dict(mode="all"), dict(mode="snps", phase=True), dict(cpu=2),
+    dict(mode="snps", dedup_transfer=False),
+    dict(mode="snps", snp_group_payload=False)])
 def test_unported_modes_raise(fixture, change):
     kw = _kw(fixture, "nope")
     kw.update(change)

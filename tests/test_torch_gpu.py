@@ -1,7 +1,10 @@
-"""The CUDA kernels K1 (nw_tb) and K2 (nw_walk) against their plain twins
-on the card, exactly: at the main path's buckets, at the edges of K1's
-32-lane column strips, with a batch that leaves the last CTA part empty,
-with pad codes, and on tie-heavy pairs. Skips without a GPU.
+"""The CUDA kernels against their plain twins on the card, exactly.
+K1 (nw_tb) and K2 (nw_walk): at the main path's buckets, at the edges of
+K1's 32-lane column strips, with a batch that leaves the last CTA part
+empty, with pad codes, and on tie-heavy pairs. K3 (snp_pileup): normal,
+deep and haploid cohorts of a simulated group, random payloads with
+holes and dense exceptions, one row, and a row of padding columns.
+Skips without a GPU.
 
 Imports neither jax nor the JAX package, so that it also runs where only
 the port is installed: `python -m pytest --noconftest tests/test_torch_gpu.py`.
@@ -14,7 +17,14 @@ import torch
 from nanocaller_tpu_torch.align import nw_kernels as K
 from nanocaller_tpu_torch.align.batch_nw import BatchAligner, encode_pairs
 from nanocaller_tpu_torch.align.nw import nw_align
-from nanocaller_tpu_torch.sim import TIE_KINDS, tie_heavy_pairs
+from nanocaller_tpu_torch.io.bam import BamReader
+from nanocaller_tpu_torch.io.fasta import FastaFile, write_fasta
+from nanocaller_tpu_torch.pileup import snp_pileup as K3
+from nanocaller_tpu_torch.pileup.snp_features import get_snp_group_payload
+from nanocaller_tpu_torch.sim import (BASES, TIE_KINDS, make_diploid_readset,
+                                      random_group_wire, random_seq,
+                                      tie_heavy_pairs, write_bam)
+from nanocaller_tpu_torch.snp_caller import SnpCallerState, pileup_cohorts
 
 from torch_threads import _torch_threads  # noqa: F401 (autouse)
 
@@ -123,3 +133,119 @@ def test_batch_aligner_cigars_on_card():
     got = BatchAligner(device="cuda").align_many(pairs)
     assert K.NW_TB_LAUNCHES > before
     assert got == [nw_align(q, r)[1] for q, r in pairs]
+
+
+class _Cfg:
+    batch_size = 128
+    disable_coverage_normalization = False
+
+
+@pytest.fixture(scope="module")
+def snp_group(tmp_path_factory):
+    """(state, {ploidy: SnpGroupFeatures}) of a simulated 60 kb, 30x
+    group of three members, maxcov 24 so that members have deep rows."""
+    _need_gpu()
+    tmp = tmp_path_factory.mktemp("gpu_snp")
+    rng = np.random.default_rng(6)
+    L = 60000
+    ref = random_seq(rng, L)
+    snps = [(p, BASES[(BASES.index(ref[p]) + 1) % 4],
+             ("het1", "het2", "hom")[k % 3])
+            for k, p in enumerate(range(400, L - 400, 700))]
+    reads = make_diploid_readset(rng, ref, snps=snps, depth=30,
+                                 read_len=2000, error_rate=0.03)
+    write_fasta(str(tmp / "ref.fa"), {"chr_t": ref})
+    write_bam(str(tmp / "reads.bam"), "chr_t", L, reads)
+    state = SnpCallerState.create("ONT-HG002", device="cuda")
+    out = {}
+    for ploidy in ("diploid", "haploid"):
+        members = [{"chrom": "chr_t", "start": 1 + i * 20000,
+                    "end": (i + 1) * 20000, "ploidy": ploidy}
+                   for i in range(3)]
+        gf = get_snp_group_payload(
+            BamReader(str(tmp / "reads.bam")), FastaFile(str(tmp / "ref.fa")),
+            members, seq_type="ul_ont", maxcov=24)
+        gf.members = [(i, sec) for i, (_m, sec) in enumerate(gf.members)]
+        out[ploidy] = gf
+    return state, out
+
+
+def _k3_equal(args):
+    before = K3.SNP_PILEUP_LAUNCHES
+    got = K3.snp_pileup(*args)
+    want = K3.snp_pileup_reference(*args)
+    torch.cuda.synchronize()
+    assert K3.SNP_PILEUP_LAUNCHES == before + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ploidy,deep", [("diploid", False),
+                                         ("diploid", True),
+                                         ("haploid", False)])
+def test_snp_pileup_cohorts_match_twin(snp_group, ploidy, deep):
+    state, groups = snp_group
+    gf = groups[ploidy]
+    launches = [a for p, d, a, _, _ in pileup_cohorts(state, gf, _Cfg())
+                if (p, d) == (ploidy, deep)]
+    assert len(launches) == 1
+    x = _k3_equal(launches[0])
+    assert x.shape[0] > 5 and float(x[:, 1:].abs().sum()) > 0
+
+
+def _cuda_args(wire_host, cand_site, soc, norm):
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    return K3.group_wire(wire_host, "cuda"), t(cand_site), t(soc), t(norm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(6))
+def test_snp_pileup_random_payloads(seed):
+    """Holes, dense exceptions, empty spans, with and without a minor
+    bitmask; normal rows, then the same rows as deep rows over random
+    read ids."""
+    _need_gpu()
+    rng = np.random.default_rng(40 + seed)
+    S, N = int(rng.integers(3, 300)), int(rng.integers(2, 700))
+    wire, cand_site, soc, norm = random_group_wire(
+        rng, S, N, B=int(rng.integers(1, 200)), max_span=min(S, 60),
+        bitmask=seed % 3 != 0)
+    args = _cuda_args(wire, cand_site, soc, norm)
+    _k3_equal(args)
+    B = len(cand_site)
+    rids = torch.from_numpy(rng.integers(0, N, (B, 24)).astype(np.int32))
+    n_valid = torch.from_numpy(rng.integers(0, 25, B).astype(np.int32))
+    _k3_equal(args + (rids.cuda(), n_valid.cuda()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_row", "all_padding"])
+def test_snp_pileup_edge_rows(case):
+    _need_gpu()
+    rng = np.random.default_rng(7)
+    wire, cand_site, soc, norm = random_group_wire(rng, 50, 200, B=3)
+    if case == "one_row":
+        cand_site, soc, norm = cand_site[:1], soc[:1], norm[:1]
+    else:
+        soc[1] = -1
+        soc[1, 20] = cand_site[1]  # the centre column is the candidate
+        soc[2] = -1  # even the centre column: the trash site
+    x = _k3_equal(_cuda_args(wire, cand_site, soc, norm))
+    if case == "all_padding":
+        assert float(x[2].abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+def test_snp_pileup_wrapper_refuses():
+    _need_gpu()
+    wire, cand_site, soc, norm = _cuda_args(*random_group_wire(
+        np.random.default_rng(8), 30, 80, B=4))
+    with pytest.raises(TypeError, match="soc"):  # refused, not cast
+        K3.snp_pileup(wire, cand_site, soc.long(), norm)
+    with pytest.raises(TypeError, match="cand_site"):
+        K3.snp_pileup(wire, cand_site.long(), soc, norm)
+    with pytest.raises(ValueError, match="expected cuda"):
+        K3.snp_pileup(wire, cand_site, soc, norm.cpu())
+    with pytest.raises(ValueError, match="expected cpu"):
+        K3.snp_pileup(wire, cand_site.cpu(), soc.cpu(), norm.cpu())

@@ -75,6 +75,7 @@ def test_cuda_without_gpu_raises():
     from nanocaller_tpu_torch.align.batch_nw import BatchAligner
     from nanocaller_tpu_torch.indel_caller import IndelCallerState
     from nanocaller_tpu_torch.runtime.device import resolve_device
+    from nanocaller_tpu_torch.snp_caller import SnpCallerState
 
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
@@ -82,3 +83,5 @@ def test_cuda_without_gpu_raises():
         BatchAligner()
     with pytest.raises(RuntimeError):
         IndelCallerState.create("ONT-HG002")
+    with pytest.raises(RuntimeError):
+        SnpCallerState.create("ONT-HG002")

@@ -1,0 +1,358 @@
+"""The port's SNP group path against the JAX package on a small fixture:
+the group payload and the neighbour selection (exact), K3's plain twin
+`snp_pileup_reference` against the tensor that the JAX package's
+_rid_matrix + _group_cell_codes + _snp_forward_dense assembly give
+(exact), and infer_snp_group's probabilities (atol 2e-5)."""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from nanocaller_tpu import snp_caller as J
+from nanocaller_tpu.io.bam import BamReader as JBamReader
+from nanocaller_tpu.io.fasta import FastaFile as JFastaFile
+from nanocaller_tpu.pileup.snp_features import SnpBatch
+from nanocaller_tpu.pileup.snp_features import \
+    SnpGroupFeatures as JSnpGroupFeatures
+from nanocaller_tpu.pileup.snp_features import assemble_matrices_np
+from nanocaller_tpu.pileup.snp_features import \
+    get_snp_group_payload as j_get_snp_group_payload
+from nanocaller_tpu_torch import snp_caller as P
+from nanocaller_tpu_torch.io.bam import BamReader
+from nanocaller_tpu_torch.io.fasta import FastaFile
+from nanocaller_tpu_torch.pileup import snp_pileup as K3
+from nanocaller_tpu_torch.pileup.snp_features import (WIDTH,
+                                                      get_snp_group_payload)
+from nanocaller_tpu_torch.sim import random_group_wire
+
+from fixtures import BASES, make_fixture, random_seq
+from torch_threads import _torch_threads  # noqa: F401 (autouse)
+
+L = 100_000
+# four members of 25 kb; the second carries no planted SNP and no
+# candidate. A member's scan window reaches 50 kb beyond its edges, so
+# the first member's window ends at 75 kb while the group's neighbour
+# list runs on to 100 kb: ul_ont bands (±100 kb) meet the clamps.
+MEMBERS = [{"chrom": "chr_t", "start": 1 + i * 25000,
+            "end": (i + 1) * 25000, "ploidy": "diploid"} for i in range(4)]
+EMPTY = [False, True, False, False]
+WIRE_FIELDS = ("read_lo", "read_hi", "site_ref", "site_major", "site_minor",
+               "minor_bits", "exc_site", "exc_rid", "exc_code", "hole_site",
+               "hole_rid", "nbr_pos", "nbr_union")
+# (seq_type, maxcov): ONT with every row normal; ul_ont (bands reaching
+# ±100 kb, beyond each member's window) with maxcov below the depth, so
+# that members carry deep rows
+PAYLOADS = [("ont", 160), ("ul_ont", 24)]
+# (seq_type, maxcov, ploidy) of the payloads built on both sides
+BUILDS = [("ont", 160, "diploid"), ("ont", 160, "haploid"),
+          ("ul_ont", 24, "diploid")]
+
+
+class Cfg:
+    batch_size = 128
+    disable_coverage_normalization = False
+
+
+@pytest.fixture(scope="module")
+def snp_fixture(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_snp")
+    ref = random_seq(np.random.default_rng(13), L)  # make_fixture's ref
+    snps = [(p, BASES[(BASES.index(ref[p]) + 1) % 4],
+             ("het1", "het2", "hom")[k % 3])
+            for k, p in enumerate([*range(700, 24000, 650),
+                                   *range(50700, 99400, 650)])]
+    fasta_p, bam_p, _, _ = make_fixture(tmp, seed=13, L=L, depth=30,
+                                        read_len=2000, snps=snps,
+                                        error_rate=0.01)
+    return fasta_p, bam_p
+
+
+def _remap(gf):
+    gf.members = [(i, sec) for i, (_m, sec) in enumerate(gf.members)]
+    return gf
+
+
+@pytest.fixture(scope="module")
+def payloads(snp_fixture):
+    fasta_p, bam_p = snp_fixture
+    out = {}
+    for seq_type, maxcov, ploidy in BUILDS:
+        mem = [dict(m, ploidy=ploidy) for m in MEMBERS]
+        want = j_get_snp_group_payload(
+            JBamReader(bam_p), JFastaFile(fasta_p), mem, seq_type=seq_type,
+            maxcov=maxcov)
+        got = get_snp_group_payload(
+            BamReader(bam_p), FastaFile(fasta_p), mem, seq_type=seq_type,
+            maxcov=maxcov)
+        out[seq_type, maxcov, ploidy] = (_remap(want), _remap(got))
+    return out
+
+
+@pytest.mark.parametrize("seq_type,maxcov", PAYLOADS)
+def test_group_payload_identical(payloads, seq_type, maxcov):
+    want, got = payloads[seq_type, maxcov, "diploid"]
+    assert isinstance(want, JSnpGroupFeatures)
+    for k in WIRE_FIELDS:
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k),
+                                      err_msg=k)
+        assert getattr(got, k).dtype == getattr(want, k).dtype, k
+    assert (got.n_reads, got.maxcov, got.seq_type) == \
+        (want.n_reads, want.maxcov, want.seq_type)
+    assert [s is None for _, s in got.members] == EMPTY
+    deep = 0
+    for (_, a), (_, b) in zip(want.members, got.members):
+        if a is None:
+            assert b is None
+            continue
+        for k in a.__dataclass_fields__:
+            np.testing.assert_array_equal(getattr(b, k), getattr(a, k),
+                                          err_msg=k)
+        deep += len(a.deep_idx)
+    assert (deep > 0) == (maxcov == 24)
+    assert len(got) == sum(len(s) for _, s in want.members if s)
+
+
+def _rows(gf, deep=False):
+    """The group's candidate rows (every row, or the deep ones with their
+    read ids): (cand_site, cand_pos, lo, hi[, deep_rids])."""
+    secs = [s for _, s in gf.members if s is not None]
+    pick = [s.deep_idx if deep else np.arange(len(s)) for s in secs]
+    cat = lambda f: np.concatenate([f(s, p) for s, p in zip(secs, pick)])
+    rows = tuple(cat(f).astype(np.int32) for f in (
+        lambda s, p: s.cand_site[p], lambda s, p: s.cand_pos32[p],
+        lambda s, p: np.full(len(p), s.nbr_lo),
+        lambda s, p: np.full(len(p), s.nbr_hi)))
+    return rows + (cat(lambda s, p: s.deep_rids),) if deep else rows
+
+
+_select_clamped_jit = jax.jit(J._device_select_neighbors_clamped,
+                              static_argnums=(4,))
+_select_jit = jax.jit(J._device_select_neighbors, static_argnums=(4,))
+
+
+def _jax_soc(gf, rows):
+    return np.asarray(_select_clamped_jit(
+        *(jnp.asarray(a) for a in rows[:2]), jnp.asarray(gf.nbr_pos),
+        jnp.asarray(gf.nbr_union), gf.seq_type,
+        *(jnp.asarray(a) for a in rows[2:])))
+
+
+@pytest.mark.parametrize("seq_type,maxcov", PAYLOADS)
+def test_select_neighbors_identical(payloads, seq_type, maxcov):
+    _, gf = payloads[seq_type, maxcov, "diploid"]
+    rows = _rows(gf)
+    want = _jax_soc(gf, rows)
+    t = lambda a: torch.from_numpy(a)
+    got = P.select_neighbors_clamped(
+        t(rows[0]), t(rows[1]), t(gf.nbr_pos), t(gf.nbr_union), gf.seq_type,
+        t(rows[2]), t(rows[3]))
+    assert got.dtype == torch.int32 and got.shape == (len(rows[0]), WIDTH)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # ul_ont: the clamps bite, some rows lose neighbours beyond their
+    # member's window (ONT's ±50 kb bands never leave it)
+    unclamped = np.asarray(_select_jit(
+        jnp.asarray(rows[0]), jnp.asarray(rows[1]), jnp.asarray(gf.nbr_pos),
+        jnp.asarray(gf.nbr_union), gf.seq_type))
+    assert (unclamped != want).any() == (seq_type == "ul_ont")
+
+
+def _jax_covering(rl, rh, hole_indptr, hole_rid, cand_site, S, R):
+    """_group_body's covering-read list: the interval and hole test of
+    every read at the centre site, then _rid_matrix."""
+    N = rl.shape[0]
+    s_c = jnp.clip(cand_site, 0, S)
+    iv = (rl[None, :] <= s_c[:, None]) & (s_c[:, None] <= rh[None, :])
+    if hole_rid.shape[0]:
+        qn = jnp.broadcast_to(jnp.arange(N, dtype=jnp.int32)[None, :],
+                              iv.shape)
+        lo = hole_indptr[s_c][:, None]
+        hi = hole_indptr[s_c + 1][:, None]
+        pos = J._lower_bound_rows(hole_rid, lo, hi, qn, int(N).bit_length(),
+                                  hole_rid.shape[0])
+        iv = iv & ~((pos < jnp.broadcast_to(hi, iv.shape))
+                    & (hole_rid[jnp.clip(pos, 0, hole_rid.shape[0] - 1)]
+                       == qn))
+    rid, depth = J._rid_matrix(iv, R)
+    return rid, jnp.arange(R)[None, :] < jnp.minimum(depth, R)[:, None]
+
+
+# one compiled program per shape (op-by-op dispatch recompiles every
+# primitive for each new shape)
+_jax_covering_jit = jax.jit(_jax_covering, static_argnums=(5, 6))
+_group_cell_codes_jit = jax.jit(J._group_cell_codes,
+                                static_argnums=(12, 13))
+
+
+def _jax_pileup(w, cand_site, soc, norm, deep_rids=None, R=None):
+    """The JAX package's tensor: _group_body's covering-read list (or the
+    deep rows' explicit ids), _group_cell_codes, then the
+    _snp_forward_dense assembly (assemble_matrices_np) and the coverage
+    scale. w: the host wire arrays under SnpGroupFeatures' names."""
+    S, N = len(w.site_ref), len(w.read_lo)
+    ar = np.arange(S + 2, dtype=np.int32)
+    ext = lambda a: jnp.asarray(np.concatenate([a, [np.int8(4)]]))
+    rl, rh = jnp.asarray(w.read_lo), jnp.asarray(w.read_hi)
+    exc_indptr = jnp.asarray(np.searchsorted(w.exc_site, ar)
+                             .astype(np.int32))
+    hole_indptr = jnp.asarray(np.searchsorted(w.hole_site, ar)
+                              .astype(np.int32))
+    hole_rid = jnp.asarray(w.hole_rid)
+    if deep_rids is None:
+        rid, read_mask = _jax_covering_jit(rl, rh, hole_indptr, hole_rid,
+                                           jnp.asarray(cand_site), S, R)
+        read_mask = np.asarray(read_mask)
+    else:
+        rid = jnp.asarray(deep_rids)
+        read_mask = np.ones(deep_rids.shape, bool)
+    site_sel = jnp.where(jnp.asarray(soc) >= 0, jnp.asarray(soc), S)
+    codes = np.asarray(_group_cell_codes_jit(
+        rl, rh, jnp.asarray(w.minor_bits), ext(w.site_major),
+        ext(w.site_minor), exc_indptr, jnp.asarray(w.exc_rid),
+        jnp.asarray(w.exc_code), hole_indptr, hole_rid, site_sel, rid, S,
+        int(N).bit_length()))
+    col_valid = soc >= 0
+    col_ref = np.where(col_valid, w.site_ref[np.clip(soc, 0, S - 1)],
+                       4).astype(np.int8)
+    B = len(cand_site)
+    z = np.zeros(B, np.int32)
+    batch = SnpBatch(contig="c", pos=z, codes=codes, read_mask=read_mask,
+                     col_ref=col_ref, col_valid=col_valid,
+                     center_ref=w.site_ref[cand_site], dp=z,
+                     freq=z.astype(np.float32), fwd_dp=z, rev_dp=z,
+                     sampled_depth=z, nbr_counts=z)
+    x = assemble_matrices_np(batch)
+    x[:, 1:, :, :4] *= norm[:, None, None, None]
+    return x
+
+
+def _port_pileup(w, cand_site, soc, norm, deep_rids=None):
+    wire = K3.group_wire(w, "cpu")
+    n_valid = None
+    if deep_rids is not None:
+        deep_rids = torch.from_numpy(deep_rids)
+        n_valid = torch.full((len(cand_site),), deep_rids.shape[1],
+                             dtype=torch.int32)
+    return K3.snp_pileup(wire, torch.from_numpy(cand_site),
+                         torch.from_numpy(np.array(soc, np.int32)),
+                         torch.from_numpy(norm),
+                         deep_rids, n_valid).numpy()
+
+
+@pytest.mark.parametrize("rows", ["normal", "deep", "random"])
+def test_pileup_reference_matches_jax(payloads, rows):
+    if rows == "random":
+        # random payloads in the manner of tests/test_snp_group_payload.py
+        # (TestCellCodeOracle): empty spans, holes, dense exceptions,
+        # with or without a minor bitmask
+        rng = np.random.default_rng(0)
+        for trial in range(6):
+            w, cand_site, soc, norm = random_group_wire(
+                rng, S=int(rng.integers(3, 40)), N=int(rng.integers(2, 60)),
+                B=int(rng.integers(1, 12)), bitmask=rng.random() < 0.8)
+            want = _jax_pileup(w, cand_site, soc, norm, R=len(w.read_lo))
+            got = _port_pileup(w, cand_site, soc, norm)
+            np.testing.assert_array_equal(got, want,
+                                          err_msg="trial %d" % trial)
+        return
+    maxcov = 160 if rows == "normal" else 24
+    seq_type = "ont" if rows == "normal" else "ul_ont"
+    _, gf = payloads[seq_type, maxcov, "diploid"]
+    sel = _rows(gf, deep=rows == "deep")
+    cand_site, soc = sel[0], _jax_soc(gf, sel[:4])
+    norm = np.random.default_rng(5).uniform(0.3, 3.0, len(cand_site)) \
+        .astype(np.float32)
+    deep = sel[4] if rows == "deep" else None
+    want = _jax_pileup(gf, cand_site, soc, norm, deep, R=maxcov)
+    got = _port_pileup(gf, cand_site, soc, norm, deep)
+    assert got.shape == (len(cand_site), 5, WIDTH, 5) and len(cand_site) > 20
+    np.testing.assert_array_equal(got, want)
+    assert np.abs(got[:, 1:]).sum() > 0
+
+
+@pytest.fixture(scope="module")
+def states():
+    return (J.SnpCallerState.create("ONT-HG002", mesh=None),
+            P.SnpCallerState.create("ONT-HG002", device="cpu"))
+
+
+@pytest.mark.parametrize("case", ["diploid", "haploid", "deep"])
+def test_infer_snp_group_probabilities(payloads, states, case):
+    key = {"diploid": ("ont", 160, "diploid"),
+           "haploid": ("ont", 160, "haploid"),
+           "deep": ("ul_ont", 24, "diploid")}[case]
+    want_gf, got_gf = payloads[key]
+    jstate, pstate = states
+    cfgs = [Cfg()]
+    if case == "diploid":
+        per_row = Cfg()
+        per_row.disable_coverage_normalization = True
+        cfgs.append(per_row)
+    for cfg in cfgs:
+        want = J.infer_snp_group(jstate, want_gf, cfg)
+        got = P.infer_snp_group(pstate, got_gf, cfg)
+        assert [len(g) for g in got] == [len(w) for w in want]
+        assert sum(len(g) for g in got) > 0
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, atol=2e-5)
+
+
+def test_empty_group_gives_empty_members(snp_fixture, states):
+    fasta_p, bam_p = snp_fixture
+    gf = get_snp_group_payload(BamReader(bam_p), FastaFile(fasta_p),
+                               MEMBERS[1:2], maxcov=160)
+    assert len(gf) == 0 and [s for _, s in gf.members] == [None]
+    outs = P.infer_snp_group(states[1], _remap(gf), Cfg())
+    assert [o.shape for o in outs] == [(0, 4)]
+
+
+def test_wrapper_rejects_bad_inputs():
+    w, cand_site, soc, norm = random_group_wire(np.random.default_rng(1),
+                                                S=20, N=30, B=5)
+    wire = K3.group_wire(w, "cpu")
+    args = [torch.from_numpy(cand_site), torch.from_numpy(soc),
+            torch.from_numpy(norm)]
+    K3.snp_pileup(wire, *args)  # the good call
+    with pytest.raises(TypeError, match="soc"):  # refused, not cast
+        K3.snp_pileup(wire, args[0], args[1].long(), args[2])
+    with pytest.raises(TypeError, match="norm"):
+        K3.snp_pileup(wire, args[0], args[1], args[2].double())
+    with pytest.raises(ValueError, match="contiguous"):
+        K3.snp_pileup(wire, args[0], args[1].t().contiguous().t(), args[2])
+    with pytest.raises(ValueError, match="shape"):
+        K3.snp_pileup(wire, args[0][:-1], args[1], args[2])
+    before = K3.SNP_PILEUP_LAUNCHES
+    K3.snp_pileup(wire, *args)
+    assert K3.SNP_PILEUP_LAUNCHES == before  # the twin is no launch
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_site_depth_counts_covering_reads(seed):
+    """site_depth against a plain count of the covered (site, read) cells
+    of random payloads with empty spans and holes."""
+    rng = np.random.default_rng(60 + seed)
+    w, _, _, _ = random_group_wire(rng, S=int(rng.integers(3, 50)),
+                                   N=int(rng.integers(2, 80)), B=1)
+    S = len(w.site_ref)
+    s = np.arange(S)[:, None]
+    covered = (w.read_lo[None, :] <= s) & (s <= w.read_hi[None, :])
+    covered[w.hole_site, w.hole_rid] = False
+    np.testing.assert_array_equal(K3.site_depth(w), covered.sum(axis=1))
+
+
+def test_pileup_cohorts_refuse_rows_deeper_than_maxcov(payloads, states):
+    """A normal row deeper than the payload's maxcov is refused on the
+    host, before any launch, whatever the device."""
+    _, gf = payloads["ont", 160, "diploid"]
+    state = states[1]
+    assert P.pileup_cohorts(state, gf, Cfg())
+    shallow = copy.copy(gf)
+    depth = K3.site_depth(gf)
+    shallow.maxcov = max(int(depth[sec.cand_site].max())
+                         for _, sec in gf.members if sec is not None) - 1
+    with pytest.raises(ValueError, match="deeper than maxcov"):
+        P.pileup_cohorts(state, shallow, Cfg())
