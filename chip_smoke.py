@@ -30,14 +30,22 @@ Phases, each printing one JSON line per case:
 7. the SNP slice: one 4.2 Mb contig, 30x, 8 kb reads, 3% substitution
    and 1% indel errors, a planted SNP every 1,000 bp (four two-member
    decode groups and one single) through `--mode snps --cpu 1` on cuda
-   (counters reset just before, read just after) and on cpu; both VCFs
-   (unfiltered and PASS) must agree; then the cuda run under
-   torch.profiler, with K3's device time;
-8. K3 snp_pileup against its plain twin, exactly equal, with kernel,
-   twin and bound times, at the launches the main path makes for the
-   slice's first two decode groups, for a three-member group of the
-   fixture with maxcov 24 (deep rows, clamped windows), for a haploid
-   cohort, and for a synthetic payload with holes and dense exceptions.
+   (counters reset just before, read just after; one K3 launch a
+   cohort, SNP_LAUNCHES in all) and on cpu; both VCFs (unfiltered and
+   PASS) must agree; then the cuda run under torch.profiler, with the
+   device time of K3, of the CNN's and the other kernels and of the
+   copies, and the count of searchsorted launches, which must be 0 (the
+   neighbour selection runs inside K3);
+8. K3 snp_pileup against its plain twin, exactly equal in all three
+   outputs (pileup, column sites, ref one-hot), with kernel, twin and
+   bound times and the time of the torch neighbour selection on the same
+   rows (`selection_torch_ms`, what the kernel's selection replaced), at
+   the launches the main path makes for the slice's first two decode
+   groups, for a three-member group of the fixture with maxcov 24 (deep
+   rows, clamped windows), for a haploid cohort, and for synthetic
+   payloads: holes and dense exceptions; ul_ont bands with clamped
+   windows and a read over every site; no neighbour site; one row; rows
+   at the first and last site; deep rows with no valid id.
 
 Then one JSON line with every kernel's launches, error and times, the
 nvidia-smi line, and as the last line
@@ -84,11 +92,26 @@ K2_OPS_PER_STEP = 10
 # needs the centre code of every covering read of a normal row (every
 # explicit id of a deep row) and the codes of the other valid columns of
 # every read whose centre code counts. How K3 finds the covering reads
-# (its O(B*N) scan) is its own cost, not the function's.
+# (its read window, which may also hold reads that do not cover the
+# centre) is its own cost, not the function's.
 K3_OPS_PER_CODE = 17
 # int32 operations per counted cell (a code 0-3 of a counted read), one
 # each: the counter address (two multiply-adds) and the add
 K3_OPS_PER_COUNT = 3
+# int32 operations of the neighbour selection, one each. Per step of a
+# band end's lower bound in nbr_pos (ceil(log2(M + 1)) steps, two ends a
+# band): the mid add and shift, the 64-bit compare (two) and the select.
+K3_OPS_PER_SEARCH_STEP = 5
+# per band: cand_pos + the two offsets (64-bit, two each), the four
+# clamps, i1 - i0, the min with k, the start select, and its step of the
+# compaction's prefix sum (five shuffled adds shared by the bands: one)
+K3_OPS_PER_BAND = 12
+# per selected column: its column index (base + rank), the index clamp
+# and the union-site load's address
+K3_OPS_PER_COLUMN = 3
+# the SNP slice's K3 launches: one diploid cohort for each of its five
+# decode groups (no deep row at maxcov 160)
+SNP_LAUNCHES = 5
 BUCKETS = [(192, 192), (256, 192), (512, 512)]
 SCORINGS = {"allele": (20, -10, 9, 1), "msa": (5, -4, 8, 1)}
 B_NW = 1024
@@ -120,10 +143,11 @@ def fail(msg):
     sys.exit(1)
 
 
-def cuda_ms(fn, reps, prep=None):
+def cuda_ms(fn, reps, prep=None, spin=SPIN_CYCLES):
     """Mean device ms of fn() by CUDA events, after one warm-up. A spin
-    kernel queued first keeps the card busy while the host queues the
-    timed calls, so the host's time between launches is not counted.
+    kernel of `spin` cycles queued first keeps the card busy while the
+    host queues the timed calls, so the host's time between launches is
+    not counted (give a longer spin to a fn of many small launches).
     With prep, each timed fn() follows an untimed prep() (K2 then reads
     the traceback K1 has just written, from a warm L2, as on the main
     path)."""
@@ -131,7 +155,7 @@ def cuda_ms(fn, reps, prep=None):
 
     fn() if prep is None else (prep(), fn())
     torch.cuda.synchronize()
-    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda._sleep(spin)
     if prep is None:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -400,9 +424,9 @@ def phase_slice(K, tmp):
     argv = ["--bam", bam_p, "--ref", fasta_p, "--mode", "indels", "--cpu",
             "1", "--device", "cuda", "--output", os.path.join(tmp, "out_prof"),
             "--prefix", "smoke", "--sample", "S", "--suppress_progress_bar"]
-    prof, kern = profile_slice(cli, argv, ("nw_tb_rows_kernel",
-                                            "nw_tb_wave_kernel",
-                                            "nw_walk_kernel"))
+    prof, kern, _ = profile_slice(cli, argv, ("nw_tb_rows_kernel",
+                                               "nw_tb_wave_kernel",
+                                               "nw_walk_kernel"))
     if n_rec < 1:
         fail("no indel records called")
     emit({"phase": "slice", "contig_bp": FIXTURE_LEN, "reads": n_reads,
@@ -421,7 +445,8 @@ def phase_slice(K, tmp):
 def profile_slice(cli, argv, kernel_names):
     """A cuda run once more under torch.profiler: device time by kernel,
     the named kernels' device time, and the device's idle share of the
-    run's wall time."""
+    run's wall time; and {name: (device us, launches)} of every device
+    event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -433,8 +458,10 @@ def profile_slice(cli, argv, kernel_names):
     # device-side events only (kernels and copies): the CPU ops that
     # launched them report the same time again
     cuda = torch.autograd.DeviceType.CUDA
-    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-              if e.device_type == cuda and e.self_device_time_total > 0}
+    dev = {e.key: (e.self_device_time_total, e.count)
+           for e in prof.key_averages()
+           if e.device_type == cuda and e.self_device_time_total > 0}
+    dev_us = {k: us for k, (us, _) in dev.items()}
     busy_s = sum(dev_us.values()) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
     kernels_us = {name: sum(v for k, v in dev_us.items() if name in k)
@@ -442,7 +469,7 @@ def profile_slice(cli, argv, kernel_names):
     return {"wall_s": wall, "device_busy_s": busy_s if dev_us else None,
             "device_idle_share": (1 - busy_s / wall) if dev_us else None,
             "device_us_by_name": {k: v for k, v in top}}, {
-                **kernels_us, "sum_us": sum(kernels_us.values())}
+                **kernels_us, "sum_us": sum(kernels_us.values())}, dev
 
 
 def phase_snp_models():
@@ -581,8 +608,9 @@ def phase_snp_slice(tmp):
             metrics = json.load(fh)
         runs[dev] = (outputs["snps"], wall, counts, metrics)
     pass_cuda, wall, counts, metrics = runs["cuda"]
-    if counts["SNP_PILEUP_LAUNCHES"] < 1:
-        fail("the SNP main path launched no K3: %s" % counts)
+    if counts["SNP_PILEUP_LAUNCHES"] != SNP_LAUNCHES:
+        fail("the SNP main path launched K3 %d times, not once a cohort "
+             "(%d)" % (counts["SNP_PILEUP_LAUNCHES"], SNP_LAUNCHES))
     if runs["cpu"][2]["SNP_PILEUP_LAUNCHES"] != 0:
         fail("the cpu run launched K3")
     if metrics["counts"].get("snp_chunks", 0) < 2:
@@ -597,8 +625,22 @@ def phase_snp_slice(tmp):
     for d in d_pass:
         emit({"phase": "snp_slice_rounding_case", "vcf": "pass", **d})
     K3.reset_counters()
-    prof, kern = profile_slice(cli, argv("cuda", "snp_prof"),
-                               ("snp_pileup_kernel",))
+    prof, kern, dev = profile_slice(cli, argv("cuda", "snp_prof"),
+                                    ("snp_pileup_kernel",))
+    # the SNP device time by kind: K3, copies, and the rest (the CNN's
+    # cuDNN/cuBLAS and elementwise kernels); no searchsorted may run
+    part = lambda *names: [v for k, v in dev.items()
+                           if any(n in k for n in names)]
+    k3_us = sum(us for us, _ in part("snp_pileup_kernel"))
+    copy_us = sum(us for us, _ in part("Memcpy", "Memset"))
+    n_search = sum(n for _, n in part("searchsorted"))
+    breakdown = {"k3_us": k3_us, "copies_us": copy_us,
+                 "cnn_and_other_us": sum(us for us, _ in dev.values())
+                 - k3_us - copy_us,
+                 "device_launches": sum(n for _, n in dev.values()),
+                 "searchsorted_launches": n_search}
+    if n_search:
+        fail("the profiled SNP run launched searchsorted %d times" % n_search)
     emit({"phase": "snp_slice", "contig_bp": SNP_FIXTURE_LEN,
           "reads": n_reads, "planted_snps": n_planted,
           "fixture_s": t_fixture,
@@ -610,15 +652,19 @@ def phase_snp_slice(tmp):
           "cpu_timers_s": runs["cpu"][3]["timers_s"], **counts})
     emit({"phase": "snp_slice_profile", **prof})
     emit({"phase": "snp_slice_profile_k3", **kern,
-          "launches": K3.SNP_PILEUP_LAUNCHES})
+          "launches": K3.SNP_PILEUP_LAUNCHES, **breakdown})
     return counts, fasta_p, bam_p
 
 
 def k3_cases(fasta_p, bam_p):
     """Phase 8 inputs: (label, snp_pileup args, host payload) at the
     launches the main path makes for the slice's first two decode groups,
-    a three-member group with maxcov 24, a haploid member, and a
-    synthetic payload with holes and dense exceptions."""
+    a three-member group with maxcov 24, a haploid member, and synthetic
+    payloads (sim.random_group_wire: reads out of start order, clamped
+    windows): holes and dense exceptions at a decode group's size; the
+    same with ul_ont bands and a read over every site; no neighbour site;
+    one row; rows at the first and last site with deep rows, a third of
+    them with no valid id."""
     import numpy as np
     import torch
 
@@ -662,48 +708,84 @@ def k3_cases(fasta_p, bam_p):
             fail("a member of the three-member group has no deep row")
         yield label, args, gf
     yield from cohorts("one_member", chunks[:1], cfg.maxcov, "haploid")
-    # about a decode group's size: 1,200 sites, 4,200 reads, 1,100 rows
-    wire, cand_site, soc, norm = random_group_wire(
-        np.random.default_rng(11), S=1200, N=4200, B=1100, max_span=40)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
-    args = (K3.group_wire(wire, "cuda"), t(cand_site), t(soc), t(norm),
-            None, None)
-    yield "synthetic_holes_exceptions", args, wire
+    rng = np.random.default_rng(11)
+    # about a decode group's size: 1,200 sites, 4,200 reads, 1,100 rows
+    for label, kw in (
+            ("synthetic_holes_exceptions", dict(S=1200, N=4200, B=1100,
+                                                max_span=40)),
+            ("synthetic_ul_ont_spanning_read",
+             dict(S=1200, N=4200, B=1100, max_span=40, seq_type="ul_ont",
+                  span_all=True, exc_share=0.05, hole_share=0.02)),
+            ("synthetic_no_neighbours", dict(S=300, N=1000, B=300,
+                                             max_span=40, nbr_share=0.0)),
+            ("synthetic_one_row", dict(S=300, N=1000, B=1, max_span=40))):
+        wire, *rows = random_group_wire(rng, **kw)
+        yield label, (K3.group_wire(wire, "cuda"), *map(t, rows), None,
+                      None), wire
+    # rows at the first and last site (before and after every neighbour)
+    # and deep rows, a third with no valid id
+    wire, *rows = random_group_wire(rng, S=300, N=1000, B=300, max_span=40)
+    cand_site, cand_pos, lo_c, hi_c, norm = rows
+    cand_site[:2] = (0, len(wire.site_ref) - 1)
+    cand_pos[:2] = (wire.nbr_pos[0] - 1, wire.nbr_pos[-1] + 1)
+    lo_c[:2], hi_c[:2] = 0, len(wire.nbr_pos)
+    rids = rng.integers(0, len(wire.read_lo), (300, 24)).astype(np.int32)
+    n_valid = np.where(rng.random(300) < 1 / 3, 0,
+                       rng.integers(1, 25, 300)).astype(np.int32)
+    n_valid[:2] = 24
+    yield "synthetic_deep_edges", (K3.group_wire(wire, "cuda"),
+                                   *map(t, rows), t(rids), t(n_valid)), wire
 
 
-def k3_work(args, gf, x):
-    """What one K3 launch's pileup x needed, counted from this run's
-    inputs: the bytes of its inputs and output; the (row, read) pairs
+def k3_work(args, gf, outs):
+    """What one K3 launch's outputs needed, counted from this run's
+    inputs: the bytes of its inputs and outputs; the (row, read) pairs
     whose centre code it needs (every covering read of a normal row, from
     the host payload gf, or every explicit id of a deep row); the reads
     that counted and their counted cells (rows 1-4, channels 0-3 of x hold
     count * norm, flipped at the ref base; the centre column counts each
     counted read once); the cell codes (the covering reads' centre codes
-    and the other valid columns of each counted read). K3's own read
-    scan (scanned_reads, every read of the group for each normal row) is
-    printed beside them but is not the function's work."""
+    and the other valid columns of each counted read); the neighbour
+    selection (two lower bounds a band of the row's schedule, its
+    band arithmetic, each selected column). K3's own read window
+    (scanned_reads: the window's reads for each normal row, from the
+    wire's win_lo/win_hi; the explicit ids of a deep row) is printed
+    beside them, but its reads that do not cover the centre are not the
+    function's work."""
+    import math
+
     import torch
 
     from nanocaller_tpu_torch.pileup import snp_pileup as K3
 
-    wire, cand_site, soc, norm, rids, n_valid = args
+    x, soc, ref = outs
+    wire, cand_site, cand_pos, lo_c, hi_c, norm, rids, n_valid = args
     if rids is None:
         covering = int(K3.site_depth(gf)[cand_site.cpu().numpy()].sum())
-        scanned = x.shape[0] * wire.n_reads
+        s = cand_site.long()
+        scanned = int((wire.win_hi[s] - wire.win_lo[s]).clamp(min=0).sum())
     else:
-        covering = scanned = int(torch.clamp(n_valid,
-                                             max=rids.shape[1]).sum())
+        covering = scanned = int(torch.clamp(n_valid, 0,
+                                             rids.shape[1]).sum())
     cells = (x[:, 1:, :, :4].abs() / norm[:, None, None, None]).round()
     counted_b = cells[:, :, CENTER_COL].sum(dim=(1, 2))
     other_cols = (soc >= 0).sum(dim=1) - 1
+    n_bands = int((wire.bands[..., 2] > 0).sum())
+    steps = math.ceil(math.log2(wire.n_nbrs + 1))
+    selection_ops = x.shape[0] * n_bands * (
+        2 * steps * K3_OPS_PER_SEARCH_STEP + K3_OPS_PER_BAND) \
+        + int(other_cols.sum()) * K3_OPS_PER_COLUMN
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts
                             if t is not None)
     return {"scanned_reads": scanned, "covering_reads": covering,
             "counted_reads": int(counted_b.sum()),
             "counted_cells": int(cells.sum()),
             "cell_codes": covering + int((counted_b * other_cols).sum()),
-            "bytes": nbytes(wire.tensors()) + nbytes(
-                (cand_site, soc, norm, rids, n_valid)) + nbytes((x,))}
+            "selected_columns": int(other_cols.sum()),
+            "selection_ops": selection_ops,
+            "bytes": nbytes(wire.tensors()) + nbytes(args[1:])
+            + nbytes(outs)}
 
 
 def phase_k3(fasta_p, bam_p, e2e_launches):
@@ -714,29 +796,45 @@ def phase_k3(fasta_p, bam_p, e2e_launches):
 
     rows = []
     for label, args, gf in k3_cases(fasta_p, bam_p):
-        wire, rids = args[0], args[4]
-        x = K3.snp_pileup(*args)
-        twin = K3.snp_pileup_reference(*args)
+        wire, rids = args[0], args[6]
+        outs = K3.snp_pileup(*args)
+        twins = K3.snp_pileup_reference(*args)
         torch.cuda.synchronize()
-        err = float((x - twin).abs().max()) if x.numel() else 0.0
-        B = x.shape[0]
+        B = outs[0].shape[0]
         shape = {"inputs": label, "B": B, "N": wire.n_reads,
-                 "S": wire.n_sites, "E": wire.exc_rid.shape[0],
-                 "H": wire.hole_rid.shape[0],
+                 "S": wire.n_sites, "M": wire.n_nbrs,
+                 "E": wire.exc_rid.shape[0], "H": wire.hole_rid.shape[0],
                  "deep_width": 0 if rids is None else rids.shape[1]}
-        if err != 0:
-            fail("K3 differs from its twin at %s (max err %g)" % (shape, err))
-        work = k3_work(args, gf, x)
+        errs = [float((o.float() - w.float()).abs().max()) if o.numel()
+                else 0.0 for o, w in zip(outs, twins)]
+        if any(e != 0 for e in errs) or not all(
+                o.shape == w.shape and o.dtype == w.dtype
+                for o, w in zip(outs, twins)):
+            fail("K3 differs from its twin at %s (max err x %g, soc %g, "
+                 "ref %g)" % (shape, *errs))
+        work = k3_work(args, gf, outs)
         ms = cuda_ms(lambda: K3.snp_pileup(*args), 10)
         plain_ms = cuda_ms(lambda: K3.snp_pileup_reference(*args), 1)
+        # the torch neighbour selection K3's own replaced, on the same
+        # rows (its band table read on the host once, as the schedule
+        # was): ~200 small launches a call, ~2 ms of host time, so two
+        # calls behind a long spin, which the launch queue holds whole
+        bands = wire.bands.cpu()
+        sel_ms = cuda_ms(lambda: K3.select_neighbors_clamped(
+            args[1], args[2], wire.nbr_pos, wire.nbr_union, bands, args[3],
+            args[4]), 2, spin=8 * SPIN_CYCLES)
         row = {"phase": "K3_snp_pileup", **shape, "exact": True,
-               "max_abs_err": err, **work, "e2e_launches": e2e_launches,
-               "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err": errs[0], "soc_max_abs_err": errs[1],
+               "ref_max_abs_err": errs[2], **work,
+               "e2e_launches": e2e_launches, "ms": ms, "plain_ms": plain_ms,
+               "selection_torch_ms": sel_ms,
                **bound(work["bytes"], work["cell_codes"] * K3_OPS_PER_CODE
-                       + work["counted_cells"] * K3_OPS_PER_COUNT)}
+                       + work["counted_cells"] * K3_OPS_PER_COUNT
+                       + work["selection_ops"])}
+        row["share_of_bound"] = row["bound_ms"] / ms
         emit(row)
         rows.append(row)
-        del x, twin
+        del outs, twins
     return rows
 
 
@@ -808,7 +906,7 @@ def main():
          "library_ms": None, "shape": "B=1024 Q=192 R=192 msa scoring"},
         {"name": "snp_pileup", "route": "cuda",
          "source": "nanocaller_tpu_torch/csrc/snp_pileup.cu",
-         "replaces": "nanocaller_tpu/snp_caller.py:483",
+         "replaces": "nanocaller_tpu/snp_caller.py:417 and :483",
          "launches": snp_counts["SNP_PILEUP_LAUNCHES"],
          "max_abs_err": max_err("K3_snp_pileup", k3_rows),
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],

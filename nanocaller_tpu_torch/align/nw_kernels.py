@@ -107,8 +107,10 @@ def _lib():
         lib.nw_tb_launch.restype = i
         lib.nw_walk_launch.argtypes = [p, p, p, i, i, i, i, p]
         lib.nw_walk_launch.restype = i
-        lib.snp_pileup_launch.argtypes = [p] * 12 + [i, i, i] + [p] * 5 \
-            + [i, i, p, p]
+        # the wire's 18 arrays, N S T M, the rows' 7 arrays, deep_w B,
+        # the three outputs and the stream
+        lib.snp_pileup_launch.argtypes = [p] * 18 + [i] * 4 + [p] * 7 \
+            + [i, i] + [p] * 4
         lib.snp_pileup_launch.restype = i
         _LIB = lib
     return _LIB

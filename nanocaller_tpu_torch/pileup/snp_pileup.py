@@ -1,15 +1,17 @@
-"""K3 `snp_pileup`: the SNP group pileup from the group payload, its plain
-PyTorch twin, and its launch counter.
+"""K3 `snp_pileup`: the SNP group kernel from the group payload to the
+CNN's input, its plain PyTorch twin, and its launch counter.
 
 The hand-written CUDA kernel (csrc/snp_pileup.cu, built with K1 and K2
 into the library of align/nw_kernels.py) replaces the XLA-jitted body of
-nanocaller_tpu/snp_caller.py's group kernel between neighbour selection
-and the CNN: the covering-read list (`_rid_matrix` over the interval and
-hole test), the table-free cell codes (`_group_cell_codes`) and the
-pileup assembly of `_snp_forward_dense` (one-hot einsum, ref channel,
-flip, coverage scale). One launch takes a cohort of candidate rows
-against one group payload and writes the (B, 5, 41, 5) float32 NHWC
-tensor the SNP CNN takes.
+nanocaller_tpu/snp_caller.py's group kernel up to the CNN: the band-quota
+neighbour selection clamped to each member's window
+(`_device_select_neighbors_clamped`), the covering-read list
+(`_rid_matrix` over the interval and hole test), the table-free cell
+codes (`_group_cell_codes`) and the pileup assembly of
+`_snp_forward_dense` (one-hot einsum, ref channel, flip, coverage scale).
+One launch takes a cohort of candidate rows against one group payload and
+writes the (B, 5, 41, 5) float32 NHWC tensor the SNP CNN takes, the
+selected column sites (B, 41) and the centre-ref one-hot (B, 4).
 
 `snp_pileup` takes its twin `snp_pileup_reference` only for tensors on
 the CPU; for CUDA tensors it launches the kernel or raises.
@@ -23,10 +25,12 @@ import numpy as np
 import torch
 
 from ..align import nw_kernels
-from .snp_features import CENTER, WIDTH
+from .snp_features import BAND_SCHEDULES, CENTER, WIDTH
 
 # launches of K3 (the wrapper adds one where it launches the kernel)
 SNP_PILEUP_LAUNCHES = 0
+# rows of the band table a side: the most bands any schedule has
+MAX_BANDS = 7
 
 
 def reset_counters():
@@ -34,10 +38,34 @@ def reset_counters():
     SNP_PILEUP_LAUNCHES = 0
 
 
+def band_table(seq_type):
+    """BAND_SCHEDULES[seq_type] as an int32 (2, MAX_BANDS, 4) table: per
+    side (left, right) rows of (lo_off, hi_off, k, take), take 0 for
+    "first" and 1 for "last", in the schedule's order; unused rows are
+    zero (k = 0 selects nothing). Each side's k sum to at most 20, so its
+    columns fit beside the centre, and the bands ascend without overlap,
+    left ones before the candidate and right ones after it, so that the
+    selected neighbour indices ascend from column to column."""
+    sched = BAND_SCHEDULES[seq_type]
+    table = np.zeros((2, MAX_BANDS, 4), np.int32)
+    for i, side in enumerate(("left", "right")):
+        bands = sched[side]
+        ends = [e for lo_off, hi_off, _, _ in bands for e in (lo_off, hi_off)]
+        if len(bands) > MAX_BANDS or sum(b[2] for b in bands) > CENTER \
+                or ends != sorted(ends) \
+                or not (ends[-1] <= 0 if side == "left" else ends[0] > 0):
+            raise ValueError("band schedule %r does not fit the table"
+                             % seq_type)
+        for j, (lo_off, hi_off, k, take) in enumerate(bands):
+            table[i, j] = (lo_off, hi_off, k, take == "last")
+    return table
+
+
 @dataclass
 class PileupWire:
-    """One group's observation payload on a device (SnpGroupFeatures'
-    arrays, int32 indices and int8/uint8 codes):
+    """One group's payload on a device (SnpGroupFeatures' arrays, int32
+    indices and int8/uint8 codes), with the reads' start order and the
+    neighbour arrays:
 
     read_lo, read_hi, span_start  int32 (N); span_start is the exclusive
                                   cumsum of max(hi - lo + 1, 0)
@@ -46,6 +74,15 @@ class PileupWire:
     exc_indptr, hole_indptr       int32 (S + 2), CSR rows over the sites
     exc_rid, exc_code             int32 / int8 (E)
     hole_rid                      int32 (H)
+    order                         int32 (N), the read ids sorted by
+                                  (read_lo, id)
+    win_lo, win_hi                int32 (S + 1), each site's read window
+                                  [win_lo, win_hi) of that order
+                                  (read_windows)
+    nbr_pos, nbr_union            int32 (M), sorted neighbour positions
+                                  and their union-site indices (which
+                                  do not decrease either)
+    bands                         int32 (2, MAX_BANDS, 4), band_table
     """
 
     read_lo: torch.Tensor
@@ -60,6 +97,12 @@ class PileupWire:
     exc_code: torch.Tensor
     hole_indptr: torch.Tensor
     hole_rid: torch.Tensor
+    order: torch.Tensor
+    win_lo: torch.Tensor
+    win_hi: torch.Tensor
+    nbr_pos: torch.Tensor
+    nbr_union: torch.Tensor
+    bands: torch.Tensor
 
     @property
     def n_reads(self):
@@ -69,6 +112,10 @@ class PileupWire:
     def n_sites(self):
         return self.site_ref.shape[0] - 1
 
+    @property
+    def n_nbrs(self):
+        return self.nbr_pos.shape[0]
+
     def tensors(self):
         """The fields in declaration order, the kernel's argument order."""
         return tuple(getattr(self, f.name) for f in fields(self))
@@ -76,12 +123,22 @@ class PileupWire:
 
 def group_wire(gf, device):
     """A group payload's host arrays (SnpGroupFeatures, or any object with
-    its read_lo, read_hi, site_*, minor_bits, exc_* and hole_* fields) →
-    a PileupWire on `device`: the trash site row, the CSR row pointers
-    over S + 2 rows and the span offsets, as the JAX package's
-    infer_snp_group and _group_cell_codes derive them."""
+    its read_lo, read_hi, site_*, minor_bits, exc_*, hole_*, nbr_pos,
+    nbr_union and seq_type fields) → a PileupWire on `device`: the trash
+    site row, the CSR row pointers over S + 2 rows and the span offsets,
+    as the JAX package's infer_snp_group and _group_cell_codes derive
+    them; the reads' start order and each site's read window; the band
+    table of gf.seq_type.
+    Raises ValueError, before any copy, if nbr_pos or nbr_union is not
+    sorted (K3 counts a read's cells over the columns it reaches, which
+    needs the columns' sites in order)."""
     S = len(gf.site_ref)
     i32 = np.int32
+    nbr_pos = np.asarray(gf.nbr_pos, i32)
+    nbr_union = np.asarray(gf.nbr_union, i32)
+    for name, a in (("nbr_pos", nbr_pos), ("nbr_union", nbr_union)):
+        if len(a) > 1 and (np.diff(a) < 0).any():
+            raise ValueError("group_wire: %s must be sorted" % name)
     trash = np.full(1, 4, np.int8)
     read_lo = np.asarray(gf.read_lo, i32)
     read_hi = np.asarray(gf.read_hi, i32)
@@ -89,6 +146,7 @@ def group_wire(gf, device):
     span_start = np.zeros(len(spans), i32)
     if len(spans) > 1:
         span_start[1:] = np.cumsum(spans[:-1])
+    order, win_lo, win_hi = read_windows(read_lo, read_hi, S)
     rows = np.arange(S + 2, dtype=i32)
     site = lambda a: np.concatenate([np.asarray(a, np.int8), trash])
     host = dict(
@@ -100,7 +158,10 @@ def group_wire(gf, device):
         exc_rid=np.asarray(gf.exc_rid, i32),
         exc_code=np.asarray(gf.exc_code, np.int8),
         hole_indptr=np.searchsorted(gf.hole_site, rows).astype(i32),
-        hole_rid=np.asarray(gf.hole_rid, i32))
+        hole_rid=np.asarray(gf.hole_rid, i32),
+        order=order, win_lo=win_lo, win_hi=win_hi,
+        nbr_pos=nbr_pos, nbr_union=nbr_union,
+        bands=band_table(gf.seq_type))
     return PileupWire(**{k: torch.from_numpy(np.ascontiguousarray(v))
                          .to(device) for k, v in host.items()})
 
@@ -119,12 +180,37 @@ def site_depth(gf):
     return np.cumsum(starts - ends)[:S] - holes[:S]
 
 
+def read_windows(read_lo, read_hi, S):
+    """The reads' start order and, for every site s in [0, S], the window
+    [k0, k1) of that order that holds every read covering s:
+    order sorts the read ids by (read_lo, id); k1 is the upper bound of
+    s in read_lo[order] (the reads starting at or before s), k0 the lower
+    bound of s in the running max of read_hi[order] (before k0 every read
+    ends before s). Exact whatever the reads' id order; the window may
+    also hold reads that do not cover s (one long read widens every
+    window after its start), and is empty where k0 >= k1 (site S, the
+    trash site, is covered by no read). int32 arrays (N,), (S + 1,),
+    (S + 1,)."""
+    read_lo = np.asarray(read_lo, np.int32)
+    read_hi = np.asarray(read_hi, np.int32)
+    order = np.argsort(read_lo, kind="stable").astype(np.int32)
+    sites = np.arange(S + 1, dtype=np.int32)
+    k1 = np.searchsorted(read_lo[order], sites, side="right")
+    hi_max = np.maximum.accumulate(read_hi[order]) if len(order) \
+        else np.zeros(0, np.int32)
+    k0 = np.searchsorted(hi_max, sites, side="left")
+    return order, k0.astype(np.int32), k1.astype(np.int32)
+
+
 _WIRE_DTYPES = {
     "read_lo": torch.int32, "read_hi": torch.int32, "span_start": torch.int32,
     "site_ref": torch.int8, "site_major": torch.int8, "site_minor": torch.int8,
     "minor_bits": torch.uint8, "exc_indptr": torch.int32,
     "exc_rid": torch.int32, "exc_code": torch.int8,
-    "hole_indptr": torch.int32, "hole_rid": torch.int32}
+    "hole_indptr": torch.int32, "hole_rid": torch.int32,
+    "order": torch.int32, "win_lo": torch.int32,
+    "win_hi": torch.int32, "nbr_pos": torch.int32,
+    "nbr_union": torch.int32, "bands": torch.int32}
 
 
 def _check(t, name, dtype, shape, device):
@@ -141,23 +227,28 @@ def _check(t, name, dtype, shape, device):
         raise ValueError("%s is on %s, expected %s" % (name, t.device, device))
 
 
-def _check_inputs(wire, cand_site, soc, norm, deep_rids, n_valid):
-    dev = soc.device if isinstance(soc, torch.Tensor) else None
+def _check_inputs(wire, cand_site, cand_pos, lo_c, hi_c, norm, deep_rids,
+                  n_valid):
+    dev = cand_site.device if isinstance(cand_site, torch.Tensor) else None
     if dev is None or dev.type not in ("cpu", "cuda"):
-        raise ValueError("soc must be a CPU or CUDA tensor")
-    N, S, E = wire.n_reads, wire.n_sites, wire.exc_rid.shape[0]
+        raise ValueError("cand_site must be a CPU or CUDA tensor")
+    N, S, E, M = wire.n_reads, wire.n_sites, wire.exc_rid.shape[0], \
+        wire.n_nbrs
     shapes = dict(
         read_lo=(N,), read_hi=(N,), span_start=(N,), site_ref=(S + 1,),
         site_major=(S + 1,), site_minor=(S + 1,),
         minor_bits=(wire.minor_bits.shape[0],), exc_indptr=(S + 2,),
         exc_rid=(E,), exc_code=(E,), hole_indptr=(S + 2,),
-        hole_rid=(wire.hole_rid.shape[0],))
+        hole_rid=(wire.hole_rid.shape[0],), order=(N,), win_lo=(S + 1,),
+        win_hi=(S + 1,), nbr_pos=(M,), nbr_union=(M,),
+        bands=(2, MAX_BANDS, 4))
     for f in fields(wire):
         _check(getattr(wire, f.name), f.name, _WIRE_DTYPES[f.name],
                shapes[f.name], dev)
-    B = soc.shape[0] if soc.dim() == 2 else -1
-    _check(soc, "soc", torch.int32, (B, WIDTH), dev)
-    _check(cand_site, "cand_site", torch.int32, (B,), dev)
+    B = cand_site.shape[0] if cand_site.dim() == 1 else -1
+    for name, t in (("cand_site", cand_site), ("cand_pos", cand_pos),
+                    ("lo_c", lo_c), ("hi_c", hi_c)):
+        _check(t, name, torch.int32, (B,), dev)
     _check(norm, "norm", torch.float32, (B,), dev)
     if (deep_rids is None) != (n_valid is None):
         raise ValueError("deep_rids and n_valid go together")
@@ -170,41 +261,109 @@ def _check_inputs(wire, cand_site, soc, norm, deep_rids, n_valid):
     return B
 
 
-def snp_pileup(wire, cand_site, soc, norm, deep_rids=None, n_valid=None):
+def snp_pileup(wire, cand_site, cand_pos, lo_c, hi_c, norm, deep_rids=None,
+               n_valid=None):
     """Pileups of B candidate rows against one group payload.
 
-    wire: PileupWire; cand_site (B,) int32 union-site index; soc (B, 41)
-    int32 site of each column (−1 padding, soc[:, 20] = cand_site); norm
-    (B,) float32 coverage scale; for deep rows deep_rids (B, D) int32
-    explicit read ids and n_valid (B,) int32 (the first n_valid count).
-    → x (B, 5, 41, 5) float32, NHWC: row 0 the columns' ref one-hot,
-    rows 1-4 the signed, scaled counts of the reads with centre base
-    A/G/T/C and the ref channel. Normal rows count every covering read of
-    the centre site (the caller keeps them within maxcov: see
-    snp_caller.pileup_cohorts)."""
+    wire: PileupWire; cand_site (B,) int32 union-site index; cand_pos (B,)
+    int32 position; lo_c, hi_c (B,) int32 the member's window
+    [lo_c, hi_c) of the neighbour arrays; norm (B,) float32 coverage
+    scale; for deep rows deep_rids (B, D) int32 explicit read ids and
+    n_valid (B,) int32 (the first n_valid count).
+    → (x, soc, ref): x (B, 5, 41, 5) float32, NHWC: row 0 the columns'
+    ref one-hot, rows 1-4 the signed, scaled counts of the reads with
+    centre base A/G/T/C and the ref channel; soc (B, 41) int32 the union
+    site of each column (−1 padding, the centre column = cand_site); ref
+    (B, 4) float32 the one-hot of the candidate's ref base (all zero for
+    N). Normal rows count every covering read of the centre site (the
+    caller keeps them within maxcov: see snp_caller.pileup_cohorts)."""
     global SNP_PILEUP_LAUNCHES
-    B = _check_inputs(wire, cand_site, soc, norm, deep_rids, n_valid)
-    if soc.device.type == "cpu":
-        return snp_pileup_reference(wire, cand_site, soc, norm, deep_rids,
-                                    n_valid)
-    out = torch.empty((B, 5, WIDTH, 5), dtype=torch.float32,
-                      device=soc.device)
+    B = _check_inputs(wire, cand_site, cand_pos, lo_c, hi_c, norm,
+                      deep_rids, n_valid)
+    if cand_site.device.type == "cpu":
+        return snp_pileup_reference(wire, cand_site, cand_pos, lo_c, hi_c,
+                                    norm, deep_rids, n_valid)
+    dev = cand_site.device
+    out = torch.empty((B, 5, WIDTH, 5), dtype=torch.float32, device=dev)
+    soc = torch.empty((B, WIDTH), dtype=torch.int32, device=dev)
+    ref = torch.empty((B, 4), dtype=torch.float32, device=dev)
     if B == 0:
-        return out
+        return out, soc, ref
     lib = nw_kernels._lib()
     ptr = lambda t: t.data_ptr() if t is not None and t.numel() else None
-    with torch.cuda.device(soc.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.snp_pileup_launch(
             *[ptr(t) for t in wire.tensors()], wire.n_reads, wire.n_sites,
-            wire.minor_bits.shape[0], ptr(cand_site), ptr(soc), ptr(norm),
-            ptr(deep_rids), ptr(n_valid),
-            0 if deep_rids is None else deep_rids.shape[1], B,
-            out.data_ptr(), stream)
+            wire.minor_bits.shape[0], wire.n_nbrs, ptr(cand_site),
+            ptr(cand_pos), ptr(lo_c), ptr(hi_c), ptr(norm), ptr(deep_rids),
+            ptr(n_valid), 0 if deep_rids is None else deep_rids.shape[1], B,
+            out.data_ptr(), soc.data_ptr(), ref.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("snp_pileup launch failed: cudaError %d" % rc)
     SNP_PILEUP_LAUNCHES += 1
-    return out
+    return out, soc, ref
+
+
+def select_neighbors_clamped(cand_site, cand_pos, nbr_pos, nbr_union, bands,
+                             lo_c, hi_c):
+    """Band-quota neighbour selection against a group's neighbour arrays,
+    each candidate clamped to its member's window [lo_c, hi_c) of them:
+    the torch form of the JAX package's _device_select_neighbors_clamped
+    (snp_caller.py:417-461), equal to it exactly; K3's plain twin selects
+    with it. Runs on the device of its inputs.
+
+    cand_site, cand_pos, lo_c, hi_c: (B,) integer tensors; nbr_pos: (M,)
+    sorted neighbour positions; nbr_union: (M,) their union-site indices;
+    bands: a band_table (on any device; it is read on the host).
+    Returns (B, 41) int32 union-site indices, −1 padding, the centre
+    column = cand_site. Left neighbours are right-aligned to column
+    CENTER − 1, right ones start at CENTER + 1."""
+    table = torch.as_tensor(bands).tolist()
+    dev = cand_pos.device
+    B = cand_pos.shape[0]
+    M = nbr_union.shape[0]
+    pos = nbr_pos.long()
+    cp = cand_pos.long()
+    lo_c = lo_c.long()
+    hi_c = hi_c.long()
+    uni_of = nbr_union.long() if M else torch.zeros(1, dtype=torch.long,
+                                                   device=dev)
+    rows = torch.arange(B, device=dev)[:, None]
+    # one extra trash column absorbs the invalid slots
+    soc = torch.full((B, WIDTH + 1), -1, dtype=torch.long, device=dev)
+    for side, side_rows in zip(("left", "right"), table):
+        sel_parts, val_parts = [], []
+        for lo_off, hi_off, k, take in side_rows:
+            if k == 0:
+                continue
+            i0 = torch.searchsorted(pos, cp + lo_off)
+            i1 = torch.searchsorted(pos, cp + hi_off)
+            i0 = torch.minimum(torch.maximum(i0, lo_c), hi_c)
+            i1 = torch.minimum(torch.maximum(i1, lo_c), hi_c)
+            cnt = torch.clamp(i1 - i0, max=k)
+            start = i1 - cnt if take else i0
+            ranks = torch.arange(k, device=dev)
+            valid = ranks[None, :] < cnt[:, None]
+            sel_parts.append(torch.where(valid, start[:, None] + ranks, 0))
+            val_parts.append(valid)
+        if not sel_parts:
+            continue
+        sel = torch.cat(sel_parts, dim=1)
+        val = torch.cat(val_parts, dim=1)
+        # the stable compaction of the valid slots to the front: a valid
+        # slot's rank is the number of valid slots before it
+        rank = torch.cumsum(val.long(), dim=1) - 1
+        n = val.sum(dim=1)
+        if side == "left":
+            cols = CENTER - n[:, None] + rank
+        else:
+            cols = CENTER + 1 + rank
+        uni = uni_of[sel.clamp(0, max(M - 1, 0))]
+        soc[rows, torch.where(val, cols, WIDTH)] = torch.where(val, uni, -1)
+    soc = soc[:, :WIDTH].clone()
+    soc[:, CENTER] = cand_site.long()
+    return soc.to(torch.int32)
 
 
 def _csr_hit(indptr, rid, n_reads, s, q):
@@ -245,15 +404,20 @@ def cell_codes(wire, s, q):
     return torch.where(covered, code, 4)
 
 
-def snp_pileup_reference(wire, cand_site, soc, norm, deep_rids=None,
-                         n_valid=None):
-    """Plain PyTorch twin of K3: the (row, read) pairs each row counts,
-    their cell codes at the row's 41 columns, a count per (row, centre
-    base, column, code), then _snp_forward_dense's assembly. Same inputs
-    and output as snp_pileup, on any device."""
-    dev = soc.device
-    B = soc.shape[0]
+def snp_pileup_reference(wire, cand_site, cand_pos, lo_c, hi_c, norm,
+                         deep_rids=None, n_valid=None):
+    """Plain PyTorch twin of K3: the neighbour selection
+    (select_neighbors_clamped), the (row, read) pairs each row counts
+    (every read's interval and hole test at the centre site, or a deep
+    row's ids), their cell codes at the row's 41 columns, a count per
+    (row, centre base, column, code), then _snp_forward_dense's
+    assembly. Same inputs and outputs as snp_pileup, on any device."""
+    dev = cand_site.device
+    B = cand_site.shape[0]
     N, S = wire.n_reads, wire.n_sites
+    soc = select_neighbors_clamped(cand_site, cand_pos, wire.nbr_pos,
+                                   wire.nbr_union, wire.bands.cpu(), lo_c,
+                                   hi_c)
     if deep_rids is None:
         # the covering reads of the centre site, ascending
         s = cand_site.long().clamp(0, S)
@@ -282,12 +446,12 @@ def snp_pileup_reference(wire, cand_site, soc, norm, deep_rids=None,
     site_ref = wire.site_ref.long()
     col_ref = torch.where(col_valid, site_ref[soc.long().clamp(0, S - 1)], 4)
     center_ref = site_ref[cand_site.long().clamp(0, S - 1)]
-    ref_eq = torch.nn.functional.one_hot(center_ref, 5)[:, :4].float()
-    ch4 = ref_eq[:, :, None] * col_valid[:, None, :].float()
+    ref = torch.nn.functional.one_hot(center_ref, 5)[:, :4].float()
+    ch4 = ref[:, :, None] * col_valid[:, None, :].float()
     mat = torch.cat([mat, ch4[..., None]], dim=-1)  # (B, 4, 41, 5)
     total_ref = torch.nn.functional.one_hot(col_ref, 5).float()
     total_ref[..., 4] = 0.0
     flip = 1.0 - 2.0 * total_ref
     x = torch.cat([total_ref[:, None], mat * flip[:, None]], dim=1)
     x[:, 1:, :, :4] *= norm[:, None, None, None]
-    return x
+    return x, soc, ref

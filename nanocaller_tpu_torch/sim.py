@@ -271,26 +271,40 @@ def tie_heavy_pairs(rng, n, Q, R, kind):
 
 
 def random_group_wire(rng, S, N, B, max_span=None, bitmask=True,
-                      exc_share=0.5, hole_share=1 / 6):
+                      exc_share=0.5, hole_share=1 / 6, seq_type="ont",
+                      nbr_share=0.8, span_all=False):
     """A random SNP group payload with B candidate rows, for holding the
-    pileup kernel K3 against its twin: S union sites; N reads, a tenth of
-    them with no observation (lo = 1 > hi = 0), the others covering spans
-    of at most max_span sites (default S); random site codes 0-4; a random
-    minor-bit mask over all spans (none without `bitmask`); among the
-    covered cells up to exc_share of them as exceptions with random codes
-    and up to hole_share as holes (disjoint, each sorted by (site, rid)).
-    Rows: random centre sites, random columns with a fifth of them padding
-    (−1), random coverage scales.
+    SNP group kernel K3 against its twin: S union sites; N reads in random
+    order (not sorted by start), a tenth of them with no observation
+    (lo = 1 > hi = 0), the others covering spans of at most max_span sites
+    (default S), and with span_all one more read, at a random place,
+    covering every site; random site codes 0-4; a random minor-bit mask
+    over all spans (none without `bitmask`); among the covered cells up to
+    exc_share of them as exceptions with random codes and up to
+    hole_share as holes (disjoint, each sorted by (site, rid)).
+    Neighbours: the sites lie 200, 2,000 or 20,000 bp apart on average
+    (chosen at random, so that bands are dense or sparse), and
+    about nbr_share of them are neighbour sites (nbr_pos sorted, nbr_union
+    their site indices; nbr_share 0 gives none). Rows: random centre
+    sites at their positions, random coverage scales, and member windows
+    [lo_c, hi_c) of the neighbour arrays: a third the whole list, a third
+    random, a third cut at random distances around the candidate (these
+    empty some bands).
 
-    Returns (wire, cand_site, soc, norm): wire holds host arrays under
-    SnpGroupFeatures' field names (pileup.snp_pileup.group_wire takes
-    it)."""
+    Returns (wire, cand_site, cand_pos, lo_c, hi_c, norm): wire holds
+    host arrays under SnpGroupFeatures' field names, with seq_type
+    (pileup.snp_pileup.group_wire takes it)."""
     max_span = max_span or S
     lo = rng.integers(0, S, N)
     hi = np.minimum(lo + rng.integers(0, max_span, N), S - 1)
     empty = rng.random(N) < 0.1
     lo = np.where(empty, 1, lo).astype(np.int32)
     hi = np.where(empty, 0, hi).astype(np.int32)
+    if span_all:
+        at = int(rng.integers(0, N + 1))
+        lo = np.insert(lo, at, 0).astype(np.int32)
+        hi = np.insert(hi, at, S - 1).astype(np.int32)
+        N += 1
     spans = np.maximum(hi.astype(np.int64) - lo + 1, 0)
     total = int(spans.sum())
     minor_bits = (rng.integers(0, 256, (total + 7) // 8).astype(np.uint8)
@@ -305,7 +319,11 @@ def random_group_wire(rng, S, N, B, max_span=None, bitmask=True,
     n_hole = int(rng.integers(0, int(total * hole_share) + 1))
     exc = np.sort(keys[perm[:n_exc]])
     hole = np.sort(keys[perm[n_exc:n_exc + n_hole]])
-    i32 = lambda a: a.astype(np.int32)
+    i32 = lambda a: np.asarray(a).astype(np.int32)
+    gap = int(rng.choice((200, 2000, 20000)))
+    site_pos = np.cumsum(rng.integers(1, 2 * gap, S))
+    nbr_union = np.flatnonzero(rng.random(S) < nbr_share)
+    nbr_pos = site_pos[nbr_union]
     wire = SimpleNamespace(
         read_lo=lo, read_hi=hi,
         site_ref=rng.integers(0, 5, S).astype(np.int8),
@@ -313,10 +331,18 @@ def random_group_wire(rng, S, N, B, max_span=None, bitmask=True,
         site_minor=rng.integers(0, 5, S).astype(np.int8),
         minor_bits=minor_bits, exc_site=i32(exc // N), exc_rid=i32(exc % N),
         exc_code=rng.integers(0, 5, n_exc).astype(np.int8),
-        hole_site=i32(hole // N), hole_rid=i32(hole % N))
+        hole_site=i32(hole // N), hole_rid=i32(hole % N),
+        nbr_pos=i32(nbr_pos), nbr_union=i32(nbr_union), seq_type=seq_type)
     cand_site = rng.integers(0, S, B).astype(np.int32)
-    soc = rng.integers(0, S, (B, 41)).astype(np.int32)
-    soc[rng.random((B, 41)) < 0.2] = -1
-    soc[:, 20] = cand_site
+    cand_pos = i32(site_pos[cand_site])
+    M = len(nbr_pos)
+    kind = rng.integers(0, 3, B)
+    lo_r = rng.integers(0, M + 1, B)
+    hi_r = lo_r + (rng.random(B) * (M + 1 - lo_r)).astype(np.int64)
+    reach = 40 * gap
+    lo_n = np.searchsorted(nbr_pos, cand_pos - rng.integers(0, reach, B))
+    hi_n = np.searchsorted(nbr_pos, cand_pos + rng.integers(0, reach, B))
+    lo_c = i32(np.select([kind == 0, kind == 1], [0, lo_r], lo_n))
+    hi_c = i32(np.select([kind == 0, kind == 1], [M, hi_r], hi_n))
     norm = rng.uniform(0.3, 3.0, B).astype(np.float32)
-    return wire, cand_site, soc, norm
+    return wire, cand_site, cand_pos, lo_c, hi_c, norm

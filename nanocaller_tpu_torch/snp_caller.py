@@ -9,10 +9,10 @@ byte, and the two-file output contract ({prefix}.unfiltered.snps.vcf.gz
 + PASS-only {prefix}.snps.vcf.gz).
 
 Per decode group the host builds one observation payload
-(pileup/snp_features.py); the device selects each candidate's 41
-neighbour columns (select_neighbors_clamped), builds its pileup from the
-payload with kernel K3 (pileup/snp_pileup.py) and runs the SNP CNN
-(models/snp.py, torch/cuDNN) on the state's device.
+(pileup/snp_features.py); on the state's device, kernel K3
+(pileup/snp_pileup.py) selects each candidate's 41 neighbour columns and
+builds its pileup from the payload, one launch a cohort, and the SNP CNN
+(models/snp.py, torch/cuDNN) runs on it.
 """
 
 from __future__ import annotations
@@ -28,8 +28,7 @@ from .io.vcf import VcfWriter, standard_snp_header, view_filter
 from .models import (HaploidSNPModel, SNPModel, load_model,
                      torch_state_dict_from_params)
 from .models.registry import HAPLOID_TRAIN_COVERAGE
-from .pileup.snp_features import (BAND_SCHEDULES, CENTER, WIDTH,
-                                  get_snp_group_payload)
+from .pileup.snp_features import get_snp_group_payload
 from .pileup.snp_pileup import group_wire, site_depth, snp_pileup
 from .runtime.chunker import group_adjacent_chunks
 from .runtime.device import resolve_device
@@ -73,62 +72,6 @@ class SnpCallerState:
                    device=dev)
 
 
-def select_neighbors_clamped(cand_site, cand_pos, nbr_pos, nbr_union,
-                             seq_type, lo_c, hi_c):
-    """Band-quota neighbour selection against a group's neighbour arrays,
-    each candidate clamped to its member's window [lo_c, hi_c) of them:
-    the torch form of the JAX package's _device_select_neighbors_clamped
-    (snp_caller.py:417-461), equal to it exactly. Runs on the device of
-    its inputs.
-
-    cand_site, cand_pos, lo_c, hi_c: (B,) integer tensors; nbr_pos: (M,)
-    sorted neighbour positions; nbr_union: (M,) their union-site indices.
-    Returns (B, 41) int32 union-site indices, −1 padding, the centre
-    column = cand_site. Left neighbours are right-aligned to column
-    CENTER − 1, right ones start at CENTER + 1."""
-    sched = BAND_SCHEDULES[seq_type]
-    dev = cand_pos.device
-    B = cand_pos.shape[0]
-    M = nbr_union.shape[0]
-    pos = nbr_pos.long()
-    cp = cand_pos.long()
-    lo_c = lo_c.long()
-    hi_c = hi_c.long()
-    uni_of = nbr_union.long() if M else torch.zeros(1, dtype=torch.long,
-                                                   device=dev)
-    rows = torch.arange(B, device=dev)[:, None]
-    # one extra trash column absorbs the invalid slots
-    soc = torch.full((B, WIDTH + 1), -1, dtype=torch.long, device=dev)
-    for side in ("left", "right"):
-        sel_parts, val_parts = [], []
-        for lo_off, hi_off, k, take in sched[side]:
-            i0 = torch.searchsorted(pos, cp + lo_off)
-            i1 = torch.searchsorted(pos, cp + hi_off)
-            i0 = torch.minimum(torch.maximum(i0, lo_c), hi_c)
-            i1 = torch.minimum(torch.maximum(i1, lo_c), hi_c)
-            cnt = torch.clamp(i1 - i0, max=k)
-            start = i0 if take == "first" else i1 - cnt
-            ranks = torch.arange(k, device=dev)
-            valid = ranks[None, :] < cnt[:, None]
-            sel_parts.append(torch.where(valid, start[:, None] + ranks, 0))
-            val_parts.append(valid)
-        sel = torch.cat(sel_parts, dim=1)
-        val = torch.cat(val_parts, dim=1)
-        # the stable compaction of the valid slots to the front: a valid
-        # slot's rank is the number of valid slots before it
-        rank = torch.cumsum(val.long(), dim=1) - 1
-        n = val.sum(dim=1)
-        if side == "left":
-            cols = CENTER - n[:, None] + rank
-        else:
-            cols = CENTER + 1 + rank
-        uni = uni_of[sel.clamp(0, max(M - 1, 0))]
-        soc[rows, torch.where(val, cols, WIDTH)] = torch.where(val, uni, -1)
-    soc = soc[:, :WIDTH].clone()
-    soc[:, CENTER] = cand_site.long()
-    return soc.to(torch.int32)
-
-
 def _member_norm(state, sec, cfg):
     """Coverage scale of a member's rows in numpy float32, as the JAX
     package computes it (snp_caller.py:1442-1449)."""
@@ -145,8 +88,7 @@ def pileup_cohorts(state, gf, cfg):
     """K3's launches for one decode group, as infer_snp_group makes them.
 
     The members' rows pack into (ploidy, deep) cohorts; the payload goes
-    to state.device once, and each cohort's neighbour columns are
-    selected there. Returns [(ploidy, deep, args, dst_mi, dst_j)] in
+    to state.device once. Returns [(ploidy, deep, args, dst_mi, dst_j)] in
     launch order, where snp_pileup(*args) builds the cohort's pileups
     and row k of it belongs to member dst_mi[k], row dst_j[k]. Normal
     rows count every covering read, which the payload keeps within
@@ -190,22 +132,17 @@ def pileup_cohorts(state, gf, cfg):
             np.ascontiguousarray(np.concatenate(parts), dtype)).to(dev)
 
     wire = group_wire(gf, dev)
-    nbr_pos = torch.from_numpy(gf.nbr_pos).to(dev)
-    nbr_union = torch.from_numpy(gf.nbr_union).to(dev)
     out = []
     for (ploidy, deep), c in sorted(cohorts.items(),
                                     key=lambda kv: (kv[0][1], kv[0][0])):
-        cand_site = put(c["cand_site"], np.int32)
-        soc = select_neighbors_clamped(
-            cand_site, put(c["cand_pos"], np.int32), nbr_pos, nbr_union,
-            gf.seq_type, put(c["lo"], np.int32), put(c["hi"], np.int32))
         rids = n_valid = None
         if deep:
             rids = put(c["rids"], np.int32)
             n_valid = torch.full((rids.shape[0],), gf.maxcov,
                                  dtype=torch.int32, device=dev)
-        args = (wire, cand_site, soc, put(c["norm"], np.float32), rids,
-                n_valid)
+        args = (wire, *(put(c[k], np.int32) for k in
+                        ("cand_site", "cand_pos", "lo", "hi")),
+                put(c["norm"], np.float32), rids, n_valid)
         out.append((ploidy, deep, args, np.concatenate(c["mi"]),
                     np.concatenate(c["j"])))
     return out
@@ -228,11 +165,8 @@ def infer_snp_group(state, gf, cfg, async_mode=False):
     bs = cfg.batch_size
     with torch.inference_mode():
         for ploidy, _deep, args, mis, js in pileup_cohorts(state, gf, cfg):
-            x = snp_pileup(*args)
-            wire, cand_site = args[:2]
-            center_ref = wire.site_ref.long()[cand_site.long()]
-            # one_hot of a ref code 4 (N) is all zero, as jax.nn.one_hot's
-            ref = torch.nn.functional.one_hot(center_ref, 5)[:, :4].float()
+            # ref: the centre-ref one-hot, all zero for N as jax.nn.one_hot's
+            x, _soc, ref = snp_pileup(*args)
             probs = []
             for lo in range(0, x.shape[0], bs):
                 xs, rs = x[lo:lo + bs], ref[lo:lo + bs]

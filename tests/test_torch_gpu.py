@@ -1,14 +1,19 @@
 """The CUDA kernels against their plain twins on the card, exactly.
 K1 (nw_tb) and K2 (nw_walk): at the main path's buckets, at the edges of
 K1's 32-lane column strips, with a batch that leaves the last CTA part
-empty, with pad codes, and on tie-heavy pairs. K3 (snp_pileup): normal,
-deep and haploid cohorts of a simulated group, random payloads with
-holes and dense exceptions, one row, and a row of padding columns.
-Skips without a GPU.
+empty, with pad codes, and on tie-heavy pairs. K3 (snp_pileup), on its
+three outputs: normal, deep and haploid cohorts of a simulated group,
+random payloads (holes, dense exceptions, reads out of start order, a
+read over every site, every band schedule, clamped windows), one row,
+rows without neighbours, at the first and last site, deep rows with no
+valid id, windows longer than the kernel's list, and the wrapper's
+refusals. Skips without a GPU.
 
 Imports neither jax nor the JAX package, so that it also runs where only
 the port is installed: `python -m pytest --noconftest tests/test_torch_gpu.py`.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -20,7 +25,8 @@ from nanocaller_tpu_torch.align.nw import nw_align
 from nanocaller_tpu_torch.io.bam import BamReader
 from nanocaller_tpu_torch.io.fasta import FastaFile, write_fasta
 from nanocaller_tpu_torch.pileup import snp_pileup as K3
-from nanocaller_tpu_torch.pileup.snp_features import get_snp_group_payload
+from nanocaller_tpu_torch.pileup.snp_features import (BAND_SCHEDULES,
+                                                      get_snp_group_payload)
 from nanocaller_tpu_torch.sim import (BASES, TIE_KINDS, make_diploid_readset,
                                       random_group_wire, random_seq,
                                       tie_heavy_pairs, write_bam)
@@ -171,12 +177,15 @@ def snp_group(tmp_path_factory):
 
 
 def _k3_equal(args):
+    """K3 against its twin on both outputs (and the ref one-hot),
+    exactly; one launch."""
     before = K3.SNP_PILEUP_LAUNCHES
     got = K3.snp_pileup(*args)
     want = K3.snp_pileup_reference(*args)
     torch.cuda.synchronize()
     assert K3.SNP_PILEUP_LAUNCHES == before + 1
-    assert got.shape == want.shape and torch.equal(got, want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
     return got
 
 
@@ -190,62 +199,107 @@ def test_snp_pileup_cohorts_match_twin(snp_group, ploidy, deep):
     launches = [a for p, d, a, _, _ in pileup_cohorts(state, gf, _Cfg())
                 if (p, d) == (ploidy, deep)]
     assert len(launches) == 1
-    x = _k3_equal(launches[0])
+    x, soc, _ = _k3_equal(launches[0])
     assert x.shape[0] > 5 and float(x[:, 1:].abs().sum()) > 0
+    assert int((soc >= 0).sum()) > 20 * soc.shape[0]
 
 
-def _cuda_args(wire_host, cand_site, soc, norm):
+def _cuda_args(wire_host, *rows):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
-    return K3.group_wire(wire_host, "cuda"), t(cand_site), t(soc), t(norm)
+    return (K3.group_wire(wire_host, "cuda"), *map(t, rows))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", range(6))
 def test_snp_pileup_random_payloads(seed):
     """Holes, dense exceptions, empty spans, with and without a minor
-    bitmask; normal rows, then the same rows as deep rows over random
-    read ids."""
+    bitmask; reads out of start order, a read over every site (odd
+    seeds), every band schedule, clamped member windows; normal rows,
+    then the same rows as deep rows over random read ids."""
     _need_gpu()
     rng = np.random.default_rng(40 + seed)
     S, N = int(rng.integers(3, 300)), int(rng.integers(2, 700))
-    wire, cand_site, soc, norm = random_group_wire(
+    kinds = sorted(BAND_SCHEDULES)
+    wire, *rows = random_group_wire(
         rng, S, N, B=int(rng.integers(1, 200)), max_span=min(S, 60),
-        bitmask=seed % 3 != 0)
-    args = _cuda_args(wire, cand_site, soc, norm)
+        bitmask=seed % 3 != 0, seq_type=kinds[seed % len(kinds)],
+        span_all=seed % 2 == 1)
+    args = _cuda_args(wire, *rows)
     _k3_equal(args)
-    B = len(cand_site)
+    B = len(rows[0])
+    N = len(wire.read_lo)
     rids = torch.from_numpy(rng.integers(0, N, (B, 24)).astype(np.int32))
     n_valid = torch.from_numpy(rng.integers(0, 25, B).astype(np.int32))
     _k3_equal(args + (rids.cuda(), n_valid.cuda()))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["one_row", "all_padding"])
+@pytest.mark.parametrize("case", ["one_row", "all_padding", "no_neighbours",
+                                  "first_last_site", "deep_none_valid",
+                                  "long_window"])
 def test_snp_pileup_edge_rows(case):
     _need_gpu()
     rng = np.random.default_rng(7)
-    wire, cand_site, soc, norm = random_group_wire(rng, 50, 200, B=3)
+    kw = dict(nbr_share=0.0) if case == "no_neighbours" else {}
+    if case == "long_window":
+        # one read over every site and many long reads: windows of
+        # several hundred reads, taken in rounds of the kernel's list
+        kw = dict(max_span=50, span_all=True, exc_share=0.05,
+                  hole_share=0.02)
+    N = 900 if case == "long_window" else 200
+    wire, *rows = random_group_wire(rng, 50, N, B=3, **kw)
+    cand_site, cand_pos, lo_c, hi_c, norm = rows
+    S = len(wire.site_ref)
     if case == "one_row":
-        cand_site, soc, norm = cand_site[:1], soc[:1], norm[:1]
-    else:
-        soc[1] = -1
-        soc[1, 20] = cand_site[1]  # the centre column is the candidate
-        soc[2] = -1  # even the centre column: the trash site
-    x = _k3_equal(_cuda_args(wire, cand_site, soc, norm))
+        rows = [a[:1] for a in rows]
+    elif case == "all_padding":
+        lo_c[1] = hi_c[1] = 0  # an empty window: only the centre column
+        cand_site[2] = -1  # a candidate below 0 reads the trash site
+    elif case == "first_last_site":
+        # before every neighbour and after every neighbour
+        for i, s, p in ((0, 0, wire.nbr_pos[0] - 1),
+                        (1, S - 1, wire.nbr_pos[-1] + 1)):
+            cand_site[i], cand_pos[i] = s, p
+            lo_c[i], hi_c[i] = 0, len(wire.nbr_pos)
+    elif case == "long_window":
+        cand_site[:] = (25, 49, 40)
+    args = _cuda_args(wire, *rows)
+    if case == "deep_none_valid":
+        B = len(cand_site)
+        rids = torch.zeros((B, 8), dtype=torch.int32, device="cuda")
+        args += (rids, torch.tensor([0, 3, 0], dtype=torch.int32,
+                                    device="cuda"))
+    x, soc, _ = _k3_equal(args)
     if case == "all_padding":
-        assert float(x[2].abs().sum()) == 0.0
+        assert float(x[2, 1:].abs().sum()) == 0.0
+        assert (soc[1].cpu() >= 0).sum() == 1
+    if case == "no_neighbours":
+        assert int((soc >= 0).sum()) == soc.shape[0]
+    if case == "long_window":
+        wire, cand_site = args[0], args[1].long()
+        assert int((wire.win_hi[cand_site] - wire.win_lo[cand_site]).min()) \
+            > 256
 
 
 @pytest.mark.cuda
 def test_snp_pileup_wrapper_refuses():
     _need_gpu()
-    wire, cand_site, soc, norm = _cuda_args(*random_group_wire(
-        np.random.default_rng(8), 30, 80, B=4))
-    with pytest.raises(TypeError, match="soc"):  # refused, not cast
-        K3.snp_pileup(wire, cand_site, soc.long(), norm)
-    with pytest.raises(TypeError, match="cand_site"):
-        K3.snp_pileup(wire, cand_site.long(), soc, norm)
+    wire, cand_site, cand_pos, lo_c, hi_c, norm = _cuda_args(
+        *random_group_wire(np.random.default_rng(8), 30, 80, B=4))
+    rows = [cand_site, cand_pos, lo_c, hi_c, norm]
+    for i, name in enumerate(("cand_site", "cand_pos", "lo_c", "hi_c")):
+        with pytest.raises(TypeError, match=name):  # refused, not cast
+            K3.snp_pileup(wire, *rows[:i], rows[i].long(), *rows[i + 1:])
     with pytest.raises(ValueError, match="expected cuda"):
-        K3.snp_pileup(wire, cand_site, soc, norm.cpu())
+        K3.snp_pileup(wire, *rows[:4], norm.cpu())
+    with pytest.raises(ValueError, match="expected cuda"):
+        K3.snp_pileup(wire, cand_site, cand_pos.cpu(), *rows[2:])
     with pytest.raises(ValueError, match="expected cpu"):
-        K3.snp_pileup(wire, cand_site.cpu(), soc.cpu(), norm.cpu())
+        K3.snp_pileup(wire, *(r.cpu() for r in rows))
+    with pytest.raises(TypeError, match="nbr_union"):
+        K3.snp_pileup(dataclasses.replace(wire,
+                                          nbr_union=wire.nbr_union.long()),
+                      *rows)
+    with pytest.raises(ValueError, match="win_hi"):
+        K3.snp_pileup(dataclasses.replace(wire, win_hi=wire.win_hi[:-1]),
+                      *rows)

@@ -1,10 +1,13 @@
 """The port's SNP group path against the JAX package on a small fixture:
 the group payload and the neighbour selection (exact), K3's plain twin
-`snp_pileup_reference` against the tensor that the JAX package's
-_rid_matrix + _group_cell_codes + _snp_forward_dense assembly give
-(exact), and infer_snp_group's probabilities (atol 2e-5)."""
+`snp_pileup_reference` against the JAX package: its column sites against
+_device_select_neighbors_clamped and its tensor against what
+_rid_matrix + _group_cell_codes + the _snp_forward_dense assembly give
+(both exact), its read windows against brute force, and
+infer_snp_group's probabilities (atol 2e-5)."""
 
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -26,7 +29,8 @@ from nanocaller_tpu_torch import snp_caller as P
 from nanocaller_tpu_torch.io.bam import BamReader
 from nanocaller_tpu_torch.io.fasta import FastaFile
 from nanocaller_tpu_torch.pileup import snp_pileup as K3
-from nanocaller_tpu_torch.pileup.snp_features import (WIDTH,
+from nanocaller_tpu_torch.pileup.snp_features import (BAND_SCHEDULES,
+                                                      CENTER, WIDTH,
                                                       get_snp_group_payload)
 from nanocaller_tpu_torch.sim import random_group_wire
 
@@ -148,9 +152,9 @@ def test_select_neighbors_identical(payloads, seq_type, maxcov):
     rows = _rows(gf)
     want = _jax_soc(gf, rows)
     t = lambda a: torch.from_numpy(a)
-    got = P.select_neighbors_clamped(
-        t(rows[0]), t(rows[1]), t(gf.nbr_pos), t(gf.nbr_union), gf.seq_type,
-        t(rows[2]), t(rows[3]))
+    got = K3.select_neighbors_clamped(
+        t(rows[0]), t(rows[1]), t(gf.nbr_pos), t(gf.nbr_union),
+        K3.band_table(gf.seq_type), t(rows[2]), t(rows[3]))
     assert got.dtype == torch.int32 and got.shape == (len(rows[0]), WIDTH)
     np.testing.assert_array_equal(got.numpy(), want)
     # ul_ont: the clamps bite, some rows lose neighbours beyond their
@@ -159,6 +163,18 @@ def test_select_neighbors_identical(payloads, seq_type, maxcov):
         jnp.asarray(rows[0]), jnp.asarray(rows[1]), jnp.asarray(gf.nbr_pos),
         jnp.asarray(gf.nbr_union), gf.seq_type))
     assert (unclamped != want).any() == (seq_type == "ul_ont")
+
+
+@pytest.mark.parametrize("seq_type", sorted(BAND_SCHEDULES))
+def test_band_table_packs_the_schedule(seq_type):
+    table = K3.band_table(seq_type)
+    assert table.dtype == np.int32 and table.shape == (2, K3.MAX_BANDS, 4)
+    for side, rows in zip(("left", "right"), table):
+        sched = BAND_SCHEDULES[seq_type][side]
+        want = [(lo, hi, k, take == "last") for lo, hi, k, take in sched]
+        assert [tuple(r) for r in rows[:len(sched)]] == want
+        assert not rows[len(sched):].any()
+        assert rows[:, 2].sum() == 20
 
 
 def _jax_covering(rl, rh, hole_indptr, hole_rid, cand_site, S, R):
@@ -230,17 +246,32 @@ def _jax_pileup(w, cand_site, soc, norm, deep_rids=None, R=None):
     return x
 
 
-def _port_pileup(w, cand_site, soc, norm, deep_rids=None):
+def _port_pileup(w, rows, norm, deep_rids=None):
+    """K3's wrapper on the CPU (its twin) → (x, soc, ref) as numpy."""
     wire = K3.group_wire(w, "cpu")
     n_valid = None
     if deep_rids is not None:
         deep_rids = torch.from_numpy(deep_rids)
-        n_valid = torch.full((len(cand_site),), deep_rids.shape[1],
+        n_valid = torch.full((len(rows[0]),), deep_rids.shape[1],
                              dtype=torch.int32)
-    return K3.snp_pileup(wire, torch.from_numpy(cand_site),
-                         torch.from_numpy(np.array(soc, np.int32)),
-                         torch.from_numpy(norm),
-                         deep_rids, n_valid).numpy()
+    out = K3.snp_pileup(wire, *(torch.from_numpy(np.ascontiguousarray(a))
+                                for a in (*rows, norm)),
+                        deep_rids, n_valid)
+    return tuple(o.numpy() for o in out)
+
+
+def _check_against_jax(w, rows, norm, deep_rids=None, R=None):
+    """The twin's soc against _device_select_neighbors_clamped and its x
+    against the JAX package's tensor on that selection, both exactly;
+    ref is the centre-ref one-hot."""
+    x, soc, ref = _port_pileup(w, rows, norm, deep_rids)
+    want_soc = _jax_soc(w, rows)
+    np.testing.assert_array_equal(soc, want_soc)
+    want = _jax_pileup(w, rows[0], want_soc, norm, deep_rids, R=R)
+    np.testing.assert_array_equal(x, want)
+    np.testing.assert_array_equal(
+        ref, np.eye(5, dtype=np.float32)[w.site_ref[rows[0]]][:, :4])
+    return x, soc
 
 
 @pytest.mark.parametrize("rows", ["normal", "deep", "random"])
@@ -248,30 +279,75 @@ def test_pileup_reference_matches_jax(payloads, rows):
     if rows == "random":
         # random payloads in the manner of tests/test_snp_group_payload.py
         # (TestCellCodeOracle): empty spans, holes, dense exceptions,
-        # with or without a minor bitmask
+        # with or without a minor bitmask; reads out of start order, one
+        # read over every site, every band schedule, clamped windows
         rng = np.random.default_rng(0)
+        kinds = sorted(BAND_SCHEDULES)
         for trial in range(6):
-            w, cand_site, soc, norm = random_group_wire(
+            w, *sel, norm = random_group_wire(
                 rng, S=int(rng.integers(3, 40)), N=int(rng.integers(2, 60)),
-                B=int(rng.integers(1, 12)), bitmask=rng.random() < 0.8)
-            want = _jax_pileup(w, cand_site, soc, norm, R=len(w.read_lo))
-            got = _port_pileup(w, cand_site, soc, norm)
-            np.testing.assert_array_equal(got, want,
-                                          err_msg="trial %d" % trial)
+                B=int(rng.integers(1, 12)), bitmask=rng.random() < 0.8,
+                seq_type=kinds[trial % len(kinds)], span_all=trial % 2 == 1,
+                nbr_share=0.9)
+            assert len(w.nbr_pos), "trial %d" % trial
+            _check_against_jax(w, sel, norm, R=len(w.read_lo))
         return
     maxcov = 160 if rows == "normal" else 24
     seq_type = "ont" if rows == "normal" else "ul_ont"
     _, gf = payloads[seq_type, maxcov, "diploid"]
     sel = _rows(gf, deep=rows == "deep")
-    cand_site, soc = sel[0], _jax_soc(gf, sel[:4])
-    norm = np.random.default_rng(5).uniform(0.3, 3.0, len(cand_site)) \
+    norm = np.random.default_rng(5).uniform(0.3, 3.0, len(sel[0])) \
         .astype(np.float32)
     deep = sel[4] if rows == "deep" else None
-    want = _jax_pileup(gf, cand_site, soc, norm, deep, R=maxcov)
-    got = _port_pileup(gf, cand_site, soc, norm, deep)
-    assert got.shape == (len(cand_site), 5, WIDTH, 5) and len(cand_site) > 20
-    np.testing.assert_array_equal(got, want)
-    assert np.abs(got[:, 1:]).sum() > 0
+    x, soc = _check_against_jax(gf, sel[:4], norm, deep, R=maxcov)
+    assert x.shape == (len(sel[0]), 5, WIDTH, 5) and len(sel[0]) > 20
+    assert np.abs(x[:, 1:]).sum() > 0 and (soc >= 0).sum() > 20 * len(soc)
+
+
+def test_pileup_reference_without_neighbours():
+    """A payload with no neighbour site: only the centre column is valid,
+    and x equals the JAX package's tensor on that selection."""
+    rng = np.random.default_rng(3)
+    w, *sel, norm = random_group_wire(rng, S=30, N=50, B=7, nbr_share=0)
+    assert len(w.nbr_pos) == 0
+    x, soc, _ = _port_pileup(w, sel, norm)
+    want_soc = np.full((7, WIDTH), -1, np.int32)
+    want_soc[:, CENTER] = sel[0]
+    np.testing.assert_array_equal(soc, want_soc)
+    np.testing.assert_array_equal(
+        x, _jax_pileup(w, sel[0], want_soc, norm, R=len(w.read_lo)))
+
+
+@pytest.mark.parametrize("span_all", [False, True])
+def test_read_windows_hold_every_covering_read(span_all):
+    """read_windows against brute force: every read covering s (by its
+    interval) lies in [k0, k1) of the read order, on reads out of start
+    order, with empty reads, with or without one read over every site;
+    k1 counts the reads starting at or before s; and group_wire ships
+    the same arrays."""
+    rng = np.random.default_rng(17 + span_all)
+    w, *_ = random_group_wire(rng, S=60, N=300, B=1, max_span=8,
+                              span_all=span_all)
+    lo, hi = w.read_lo, w.read_hi
+    assert (np.diff(lo) < 0).any() and (lo > hi).any()
+    S = len(w.site_ref)
+    order, k0, k1 = K3.read_windows(lo, hi, S)
+    assert order.dtype == k0.dtype == k1.dtype == np.int32
+    np.testing.assert_array_equal(np.sort(order), np.arange(len(lo)))
+    assert (np.diff(lo[order]) >= 0).all()
+    for s in range(S + 1):
+        covering = np.flatnonzero((lo <= s) & (s <= hi))
+        assert set(covering) <= set(order[k0[s]:k1[s]]), s
+        assert k1[s] == (lo <= s).sum()
+    assert k0[S] >= k1[S]  # the trash site: no read
+    if span_all:  # the read over every site opens every window early
+        assert (k0[:-1] <= (lo == 0).sum()).all()
+    else:
+        assert (k1 - k0).max() < len(lo) // 2
+    wire = K3.group_wire(w, "cpu")
+    for got, want in zip((wire.order, wire.win_lo, wire.win_hi),
+                         (order, k0, k1)):
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.fixture(scope="module")
@@ -311,20 +387,33 @@ def test_empty_group_gives_empty_members(snp_fixture, states):
 
 
 def test_wrapper_rejects_bad_inputs():
-    w, cand_site, soc, norm = random_group_wire(np.random.default_rng(1),
-                                                S=20, N=30, B=5)
+    w, *host = random_group_wire(np.random.default_rng(1), S=20, N=30, B=5)
     wire = K3.group_wire(w, "cpu")
-    args = [torch.from_numpy(cand_site), torch.from_numpy(soc),
-            torch.from_numpy(norm)]
+    args = [torch.from_numpy(a) for a in host]
     K3.snp_pileup(wire, *args)  # the good call
-    with pytest.raises(TypeError, match="soc"):  # refused, not cast
-        K3.snp_pileup(wire, args[0], args[1].long(), args[2])
+
+    def bad(i, t):
+        return K3.snp_pileup(wire, *args[:i], t, *args[i + 1:])
+
+    for i, name in enumerate(("cand_site", "cand_pos", "lo_c", "hi_c")):
+        with pytest.raises(TypeError, match=name):  # refused, not cast
+            bad(i, args[i].long())
+        with pytest.raises(ValueError, match="shape"):
+            bad(i, args[i][:-1])
     with pytest.raises(TypeError, match="norm"):
-        K3.snp_pileup(wire, args[0], args[1], args[2].double())
+        bad(4, args[4].double())
     with pytest.raises(ValueError, match="contiguous"):
-        K3.snp_pileup(wire, args[0], args[1].t().contiguous().t(), args[2])
-    with pytest.raises(ValueError, match="shape"):
-        K3.snp_pileup(wire, args[0][:-1], args[1], args[2])
+        bad(1, torch.stack([args[1], args[1]], 1)[:, 0])
+    for field, t in (("nbr_pos", wire.nbr_pos.long()),
+                     ("bands", wire.bands[:, :6].contiguous()),
+                     ("win_lo", wire.win_lo[:-1])):
+        with pytest.raises((TypeError, ValueError), match=field):
+            K3.snp_pileup(dataclasses.replace(wire, **{field: t}), *args)
+    for field in ("nbr_pos", "nbr_union"):
+        bad_w = copy.copy(w)
+        setattr(bad_w, field, getattr(w, field)[::-1].copy())
+        with pytest.raises(ValueError, match=field + " must be sorted"):
+            K3.group_wire(bad_w, "cpu")
     before = K3.SNP_PILEUP_LAUNCHES
     K3.snp_pileup(wire, *args)
     assert K3.SNP_PILEUP_LAUNCHES == before  # the twin is no launch
@@ -335,8 +424,8 @@ def test_site_depth_counts_covering_reads(seed):
     """site_depth against a plain count of the covered (site, read) cells
     of random payloads with empty spans and holes."""
     rng = np.random.default_rng(60 + seed)
-    w, _, _, _ = random_group_wire(rng, S=int(rng.integers(3, 50)),
-                                   N=int(rng.integers(2, 80)), B=1)
+    w, *_ = random_group_wire(rng, S=int(rng.integers(3, 50)),
+                              N=int(rng.integers(2, 80)), B=1)
     S = len(w.site_ref)
     s = np.arange(S)[:, None]
     covered = (w.read_lo[None, :] <= s) & (s <= w.read_hi[None, :])
