@@ -18,7 +18,7 @@ Phases, each printing one JSON line per case:
    path finds it), with the longest walk's step count;
 4. the indel CNNs (diploid and haploid packs) on cuda against cpu,
    atol 2e-5, B = 256;
-5. the indel slice: a haplotagged fixture (one 1 Mb contig, ~30x,
+5. the indel slice: a haplotagged fixture (one 500 kb contig, ~30x,
    ONT-like errors, planted het and hom indels) through
    `nanocaller_tpu_torch.cli --mode indels --cpu 1 --device cuda` with
    the launch counters reset just before and read just after, then the
@@ -45,9 +45,24 @@ Phases, each printing one JSON line per case:
    rows, clamped windows), for a haploid cohort, and for synthetic
    payloads: holes and dense exceptions; ul_ont bands with clamped
    windows and a read over every site; no neighbour site; one row; rows
-   at the first and last site; deep rows with no valid id.
+   at the first and last site; deep rows with no valid id;
+9. the whole pipeline: one untagged 2 Mb contig, 30x, 8 kb reads, 3%
+   substitution and 1% indel errors, a planted SNP every 1,000 bp and a
+   planted 1-6 bp indel every 5,000 bp, through `--mode all --cpu 1` on
+   cuda (all counters reset just before and read just after: K3 once a
+   cohort, K1 and K2 on every indel chunk) and on cpu: SNP calling,
+   phasing on the host, the indel stage on the phasing's haplotags, the
+   final VCF. The five VCFs must agree (SNP and indel rules; the final
+   VCF each record by its kind), the high-QUAL set phasing took and its
+   phase map must be identical, and the haplotagged BAM artifacts
+   record-identical; it prints the largest phase block against the
+   trellis's cap-15 limit and the phasing timers; a cuda run with
+   --skip_phased_bam must give the same VCF bytes and no artifact; then
+   the cuda run under torch.profiler, with the device time of K1, K2,
+   K3, the CNNs and the copies.
 
-Then one JSON line with every kernel's launches, error and times, the
+Then one JSON line with every kernel's launches (on the --mode all run;
+each path's own under launches_by_path), error and times, the
 nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure exits non-zero before that line. Without a GPU, or without
@@ -124,7 +139,7 @@ B_TIE = 256
 # about 20 ms of spinning at the H100's clock: longer than the host takes
 # to queue one timed loop
 SPIN_CYCLES = 40_000_000
-FIXTURE_LEN = 1_000_000
+FIXTURE_LEN = 500_000
 # the SNP slice's contig: at --cpu 1 get_chunks makes nine chunks (eight
 # of 500,001 bp), and _group_adjacent's span cap total // 4 = 1,050,000
 # bp packs them into four two-member groups and one single
@@ -132,6 +147,17 @@ SNP_FIXTURE_LEN = 4_200_000
 SNP_CNN_B = 4096
 # the pileup's centre column, the candidate site
 CENTER_COL = 20
+# the port's probability parity bar (ROADMAP "Parity bar"): a printed
+# phred value (SNP QUAL, indel QUAL and GQ: -10*log10(eps + q) for a
+# probability or complement q) may differ by more than one unit of its
+# rounding only where the probabilities it implies differ by at most
+# this. Near p = 1 one float32 step of p (6e-8) moves QUAL by one
+# 0.001 unit at QUAL 36 and by 2.6 units at QUAL 40.
+PARITY_ATOL = 2e-5
+# the --mode all fixture: one untagged contig, a SNP every 1,000 bp and
+# an indel every 5,000 bp (about 1,300 planted het sites, 1-2 kb apart,
+# which 8 kb reads link)
+ALL_FIXTURE_LEN = 2_000_000
 
 
 def emit(obj):
@@ -362,28 +388,90 @@ def _records(path):
         return [l.rstrip("\n").split("\t") for l in fh if not l.startswith("#")]
 
 
-def compare_vcfs(a, b):
-    """CHROM/POS/REF/ALT/GT identical; QUAL and GQ may differ only by one
-    unit of their %.2f rounding (a small probability delta crossing a
-    rounding boundary); each such case is printed."""
+def _near_phred(what, x, u, v, unit):
+    """A phred field's cuda and cpu values u, v: the rounding case
+    (None when equal). Past one unit of rounding, the probabilities the
+    two values imply must differ by at most PARITY_ATOL; else fail."""
+    if u == v:
+        return None
+    dp = abs(10 ** (-float(u) / 10) - 10 ** (-float(v) / 10))
+    if round(abs(float(u) - float(v)), 6) > unit and dp > PARITY_ATOL:
+        fail("%s differs by more than one unit at %s:%s: %s vs %s, and the "
+             "probabilities differ by %g > %g" % (what, x[0], x[1], u, v, dp,
+                                                  PARITY_ATOL))
+    return {"pos": int(x[1]), "field": what, "cuda": u, "cpu": v,
+            "units": round(abs(float(u) - float(v)) / unit), "implied_dp": dp}
+
+
+def _indel_record(x, y):
+    """One indel record pair: CHROM/POS/REF/ALT, FILTER, INFO, FORMAT and
+    every sample field but GQ identical; QUAL and GQ may differ by one
+    unit of their %.2f rounding, or more within the parity bar
+    (_near_phred). Returns the rounding cases."""
+    if x[:5] != y[:5] or x[6:9] != y[6:9]:
+        fail("records differ: %s vs %s" % (x, y))
+    sx, sy = x[9].split(":"), y[9].split(":")
+    if len(sx) != len(sy) or [u for k, u in enumerate(sx) if k != 1] != \
+            [v for k, v in enumerate(sy) if k != 1]:
+        fail("sample fields differ at %s:%s: %s vs %s"
+             % (x[0], x[1], x[9], y[9]))
+    cases = (_near_phred(what, x, u, v, 0.01)
+             for what, u, v in (("QUAL", x[5], y[5]), ("GQ", sx[1], sy[1])))
+    return [d for d in cases if d]
+
+
+def _snp_record(x, y):
+    """One SNP record pair: CHROM/POS/REF/ALT/FILTER/FORMAT, FQ and every
+    sample field but VF identical (GT and PS too, where phased); the PR
+    and VF values (%.4f) may differ only by one unit of their rounding,
+    QUAL (%.3f) by one unit or more within the parity bar (_near_phred).
+    Returns the rounding cases."""
+    diffs = []
+
+    def near(what, pos, u, v, unit):
+        if u == v:
+            return
+        if round(abs(float(u) - float(v)), 6) > unit:
+            fail("%s differs by more than one unit at %s: %s vs %s"
+                 % (what, pos, u, v))
+        diffs.append({"pos": int(pos), "field": what, "cuda": u, "cpu": v})
+
+    if x[:5] != y[:5] or x[6] != y[6] or x[8] != y[8]:
+        fail("records differ: %s vs %s" % (x, y))
+    d = _near_phred("QUAL", x, x[5], y[5], 0.001)
+    if d:
+        diffs.append(d)
+    ix, iy = dict(f.split("=") for f in x[7].split(";")), \
+        dict(f.split("=") for f in y[7].split(";"))
+    if ix["FQ"] != iy["FQ"]:
+        fail("FQ differs at %s" % x[1])
+    for u, v in zip(ix["PR"].split(","), iy["PR"].split(",")):
+        near("PR", x[1], u, v, 0.0001)
+    sx, sy = x[9].split(":"), y[9].split(":")
+    for k, (u, v) in enumerate(zip(sx, sy)):
+        if k == 2:  # VF
+            for uu, vv in zip(u.split(","), v.split(",")):
+                near("VF", x[1], uu, vv, 0.0001)
+        elif u != v:
+            fail("sample field %d differs at %s: %s vs %s"
+                 % (k, x[1], x[9], y[9]))
+    return diffs
+
+
+def compare_records(a, b, kind):
+    """The cuda and cpu VCFs a and b record by record, by the SNP rules
+    (kind "snp"), the indel rules ("indel") or, in a VCF of both, each
+    record's own ("any": SNP records carry FQ). Returns (records, the
+    one-unit rounding cases)."""
     ra, rb = _records(a), _records(b)
     if len(ra) != len(rb):
-        fail("cuda VCF has %d records, cpu VCF %d" % (len(ra), len(rb)))
+        fail("%s: cuda VCF has %d records, cpu VCF %d"
+             % (os.path.basename(a), len(ra), len(rb)))
     diffs = []
     for x, y in zip(ra, rb):
-        if x[:5] != y[:5] or x[9].split(":")[0] != y[9].split(":")[0]:
-            fail("records differ: %s vs %s" % (x, y))
-        for what, u, v in (("QUAL", x[5], y[5]),
-                           ("GQ", x[9].split(":")[1], y[9].split(":")[1])):
-            if u != v:
-                if round(abs(float(u) - float(v)), 6) > 0.01:
-                    fail("%s differs by more than one %%.2f unit at %s:%s: "
-                         "%s vs %s" % (what, x[0], x[1], u, v))
-                diffs.append({"pos": int(x[1]), "field": what, "cuda": u,
-                              "cpu": v})
-    for d in diffs:
-        emit({"phase": "slice_rounding_case", **d})
-    return len(ra), len(diffs)
+        snp = kind == "snp" or (kind == "any" and "FQ=" in x[7])
+        diffs.extend((_snp_record if snp else _indel_record)(x, y))
+    return len(ra), diffs
 
 
 def phase_slice(K, tmp):
@@ -420,7 +508,9 @@ def phase_slice(K, tmp):
         fail("fixture gave < 2 chunks")
     if runs["cpu"][2]["NW_TB_LAUNCHES"] != 0:
         fail("the cpu run launched a CUDA kernel")
-    n_rec, n_round = compare_vcfs(vcf_cuda, runs["cpu"][0])
+    n_rec, diffs = compare_records(vcf_cuda, runs["cpu"][0], "indel")
+    for d in diffs:
+        emit({"phase": "slice_rounding_case", **d})
     argv = ["--bam", bam_p, "--ref", fasta_p, "--mode", "indels", "--cpu",
             "1", "--device", "cuda", "--output", os.path.join(tmp, "out_prof"),
             "--prefix", "smoke", "--sample", "S", "--suppress_progress_bar"]
@@ -434,7 +524,7 @@ def phase_slice(K, tmp):
           "chunks": metrics["counts"].get("indel_chunks"),
           "candidates": metrics["counts"].get("indel_candidates"),
           "pairs_k1": counts["NW_TB_PAIRS"], "records": n_rec,
-          "rounding_cases": n_round, "cuda_wall_s": wall,
+          "rounding_cases": len(diffs), "cuda_wall_s": wall,
           "cuda_timers_s": metrics["timers_s"], "cpu_wall_s": runs["cpu"][1],
           "cpu_timers_s": runs["cpu"][3]["timers_s"], **counts})
     emit({"phase": "slice_profile", **prof})
@@ -537,46 +627,6 @@ def write_snp_fixture(tmp):
     return fasta_p, bam_p, len(snps), len(reads)
 
 
-def compare_snp_vcfs(a, b):
-    """CHROM/POS/REF/ALT/FILTER/GT and every count identical; QUAL (%.3f)
-    and the PR and VF values (%.4f) may differ only by one unit of their
-    rounding (a small probability delta crossing a rounding boundary);
-    each such case is printed."""
-    ra, rb = _records(a), _records(b)
-    if len(ra) != len(rb):
-        fail("%s: cuda VCF has %d records, cpu VCF %d"
-             % (os.path.basename(a), len(ra), len(rb)))
-    diffs = []
-
-    def near(what, pos, u, v, unit):
-        if u == v:
-            return
-        if round(abs(float(u) - float(v)), 6) > unit:
-            fail("%s differs by more than one unit at %s: %s vs %s"
-                 % (what, pos, u, v))
-        diffs.append({"pos": int(pos), "field": what, "cuda": u, "cpu": v})
-
-    for x, y in zip(ra, rb):
-        if x[:5] != y[:5] or x[6] != y[6] or x[8] != y[8]:
-            fail("records differ: %s vs %s" % (x, y))
-        near("QUAL", x[1], x[5], y[5], 0.001)
-        ix, iy = dict(f.split("=") for f in x[7].split(";")), \
-            dict(f.split("=") for f in y[7].split(";"))
-        if ix["FQ"] != iy["FQ"]:
-            fail("FQ differs at %s" % x[1])
-        for u, v in zip(ix["PR"].split(","), iy["PR"].split(",")):
-            near("PR", x[1], u, v, 0.0001)
-        sx, sy = x[9].split(":"), y[9].split(":")
-        for k, (u, v) in enumerate(zip(sx, sy)):
-            if k == 2:  # VF
-                for uu, vv in zip(u.split(","), v.split(",")):
-                    near("VF", x[1], uu, vv, 0.0001)
-            elif u != v:
-                fail("sample field %d differs at %s: %s vs %s"
-                     % (k, x[1], x[9], y[9]))
-    return len(ra), diffs
-
-
 def phase_snp_slice(tmp):
     """Phase 7: the port's CLI `--mode snps --cpu 1` on the card (counters
     reset just before and read just after), then on the CPU; the VCFs
@@ -615,9 +665,10 @@ def phase_snp_slice(tmp):
         fail("the cpu run launched K3")
     if metrics["counts"].get("snp_chunks", 0) < 2:
         fail("fixture gave < 2 SNP chunks")
-    n_pass, d_pass = compare_snp_vcfs(pass_cuda, runs["cpu"][0])
+    n_pass, d_pass = compare_records(pass_cuda, runs["cpu"][0], "snp")
     unf = lambda p: p.replace(".snps.vcf.gz", ".unfiltered.snps.vcf.gz")
-    n_all, d_all = compare_snp_vcfs(unf(pass_cuda), unf(runs["cpu"][0]))
+    n_all, d_all = compare_records(unf(pass_cuda), unf(runs["cpu"][0]),
+                                   "snp")
     if n_pass < n_planted // 2:
         fail("only %d PASS records for %d planted SNPs" % (n_pass, n_planted))
     for d in d_all:
@@ -838,6 +889,188 @@ def phase_k3(fasta_p, bam_p, e2e_launches):
     return rows
 
 
+def _vcf_phase_sets(path):
+    """The positions of a per-contig phasing VCF's records, and
+    {pos: (GT, PS)} of its phased ones."""
+    pos, pmap = set(), {}
+    for x in _records(path):
+        pos.add(int(x[1]))
+        keys, vals = x[8].split(":"), x[9].split(":")
+        if "PS" in keys:
+            pmap[int(x[1])] = (vals[0], vals[keys.index("PS")])
+    return pos, pmap
+
+
+def _bam_records(path):
+    """Decoded records of a BAM: every field the artifact carries, tags
+    in order."""
+    from nanocaller_tpu_torch.io.bam import BamReader
+
+    bam = BamReader(path)
+    out = [(r.qname, r.flag, r.ref_id, r.pos, r.mapq, list(r.cigar), r.seq,
+            bytes(r.qual), list(r.tags.items()))
+           for c in bam.references for r in bam.fetch(c)]
+    bam.close()
+    return out
+
+
+def phase_all_slice(tmp):
+    """Phase 9: the port's CLI `--mode all --cpu 1` on an untagged
+    fixture, on the card (all counters reset just before and read just
+    after: K3 once a cohort, K1 and K2 on every indel chunk) and on the
+    CPU. The five VCFs must agree by the SNP and indel rules, the
+    high-QUAL set phasing took and its phase map must be identical (a
+    one-unit QUAL rounding that crosses --phase_qual_score is printed and
+    fails), and the haplotagged BAM artifacts record-identical. Then the
+    cuda run under torch.profiler."""
+    from nanocaller_tpu_torch import cli
+    from nanocaller_tpu_torch.align import nw_kernels as K
+    from nanocaller_tpu_torch.io.bam import BamReader
+    from nanocaller_tpu_torch.pileup import snp_pileup as K3
+    from nanocaller_tpu_torch.runtime.chunker import (get_chunks,
+                                                      get_regions_list)
+    from nanocaller_tpu_torch.sim import write_all_fixture
+    from nanocaller_tpu_torch.snp_caller import _group_adjacent
+
+    t0 = time.perf_counter()
+    fasta_p, bam_p, snps, indels, n_reads = write_all_fixture(
+        tmp, ALL_FIXTURE_LEN, seed=2026, snp_every=1000, indel_every=5000,
+        depth=30, read_len=8000, error_rate=0.03, indel_error_rate=0.01)
+    t_fixture = time.perf_counter() - t0
+
+    def argv(dev, out):
+        return ["--bam", bam_p, "--ref", fasta_p, "--mode", "all", "--cpu",
+                "1", "--device", dev, "--output", os.path.join(tmp, out),
+                "--prefix", "smoke", "--sample", "S",
+                "--suppress_progress_bar"]
+
+    cfg = cli.config_from_args(argv("cuda", "all_cuda"))
+    unf = lambda p: p.replace(".snps.vcf.gz", ".unfiltered.snps.vcf.gz")
+    chunks = get_chunks(get_regions_list(cfg, BamReader(bam_p)), cfg.cpu)
+    # one diploid cohort a decode group (no deep row at maxcov 160)
+    cohorts = len(_group_adjacent(chunks, range(len(chunks)), cfg))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        K.reset_counters()
+        K3.reset_counters()
+        t0 = time.perf_counter()
+        outputs = cli.main(argv(dev, "all_" + dev))
+        wall = time.perf_counter() - t0
+        counts = {"SNP_PILEUP_LAUNCHES": K3.SNP_PILEUP_LAUNCHES,
+                  "NW_TB_LAUNCHES": K.NW_TB_LAUNCHES,
+                  "NW_WALK_LAUNCHES": K.NW_WALK_LAUNCHES,
+                  "NW_TB_PAIRS": K.NW_TB_PAIRS}
+        with open(os.path.join(tmp, "all_" + dev, "metrics.json")) as fh:
+            metrics = json.load(fh)
+        runs[dev] = (outputs, wall, counts, metrics)
+    outs, wall, counts, metrics = runs["cuda"]
+    n_chunks = metrics["counts"].get("indel_chunks", 0)
+    if counts["SNP_PILEUP_LAUNCHES"] != cohorts:
+        fail("--mode all launched K3 %d times, not once a cohort (%d)"
+             % (counts["SNP_PILEUP_LAUNCHES"], cohorts))
+    # every 100 kb chunk of this fixture holds planted indels, so each
+    # aligns its candidates' reads through K1 and K2
+    if n_chunks < 2 or counts["NW_TB_LAUNCHES"] < n_chunks or \
+            counts["NW_WALK_LAUNCHES"] < n_chunks:
+        fail("--mode all launched K1 %d and K2 %d times for %d indel chunks"
+             % (counts["NW_TB_LAUNCHES"], counts["NW_WALK_LAUNCHES"],
+                n_chunks))
+    if any(runs["cpu"][2][k] for k in ("SNP_PILEUP_LAUNCHES",
+                                       "NW_TB_LAUNCHES")):
+        fail("the cpu run launched a CUDA kernel")
+    cpu_outs = runs["cpu"][0]
+    records, cases = {}, []
+    for name, a, b, kind in (
+            ("unfiltered", unf(outs["snps"]), unf(cpu_outs["snps"]), "snp"),
+            ("snps", outs["snps"], cpu_outs["snps"], "snp"),
+            ("snps.phased", outs["phased_snps"], cpu_outs["phased_snps"],
+             "snp"),
+            ("indels", outs["indels"], cpu_outs["indels"], "indel"),
+            ("final", outs["final"], cpu_outs["final"], "any")):
+        records[name], diffs = compare_records(a, b, kind)
+        cases += [dict(d, vcf=name) for d in diffs]
+    for d in cases:
+        emit({"phase": "all_slice_rounding_case", **d})
+    # the high-QUAL set and the phase map, from the per-contig files
+    pdir = lambda dev: os.path.join(tmp, "all_" + dev,
+                                    "intermediate_phase_files")
+    hiq, pmaps = {}, {}
+    for dev in ("cuda", "cpu"):
+        hiq[dev], pmaps[dev] = _vcf_phase_sets(
+            os.path.join(pdir(dev), "chr_t.snps.phased.vcf.gz"))
+    if hiq["cuda"] != hiq["cpu"]:
+        for pos in sorted(hiq["cuda"] ^ hiq["cpu"]):
+            emit({"phase": "all_slice_hiq_crossing", "pos": pos,
+                  "cuda_hiq": pos in hiq["cuda"], "cpu_hiq": pos in hiq["cpu"],
+                  "phase_qual_score": cfg.phase_qual_score})
+        fail("the high-QUAL SNP sets of the cuda and cpu runs differ")
+    if pmaps["cuda"] != pmaps["cpu"]:
+        fail("the phase maps of the cuda and cpu runs differ")
+    blocks = {}
+    for _gt, ps in pmaps["cuda"].values():
+        blocks[ps] = blocks.get(ps, 0) + 1
+    bams = [_bam_records(os.path.join(pdir(dev), "chr_t.phased.bam"))
+            for dev in ("cuda", "cpu")]
+    if bams[0] != bams[1]:
+        fail("the haplotagged BAM artifacts of the cuda and cpu runs differ")
+    tagged = sum(1 for r in bams[0] if r[-1])
+    if records["snps.phased"] < len(snps) // 2 or len(blocks) < 1 or \
+            tagged < len(bams[0]) // 2 or records["indels"] < len(indels) // 2:
+        fail("too little was called or phased: %s records, %d blocks, %d of "
+             "%d reads tagged" % (records, len(blocks), tagged, len(bams[0])))
+    # --skip_phased_bam on the card: the same VCF bytes as the first cuda
+    # run, no artifact, and the indel stage without the writer's thread
+    t0 = time.perf_counter()
+    skip = cli.main(argv("cuda", "all_skip") + ["--skip_phased_bam"])
+    skip_wall = time.perf_counter() - t0
+    with open(os.path.join(tmp, "all_skip", "metrics.json")) as fh:
+        skip_timers = json.load(fh)["timers_s"]
+    for path in [unf(skip["snps"])] + [skip[k] for k in (
+            "snps", "phased_snps", "indels", "final")]:
+        with gzip.open(path) as a, \
+                gzip.open(path.replace("all_skip", "all_cuda")) as b:
+            if a.read() != b.read():
+                fail("--skip_phased_bam changed %s" % os.path.basename(path))
+    if os.path.exists(os.path.join(pdir("skip"), "chr_t.phased.bam")):
+        fail("--skip_phased_bam wrote the artifact")
+    K.reset_counters()
+    K3.reset_counters()
+    prof, kern, dev = profile_slice(
+        cli, argv("cuda", "all_prof"),
+        ("nw_tb_rows_kernel", "nw_tb_wave_kernel", "nw_walk_kernel",
+         "snp_pileup_kernel"))
+    part = lambda *names: sum(us for k, (us, _) in dev.items()
+                              if any(n in k for n in names))
+    kern["copies_us"] = part("Memcpy", "Memset")
+    kern["cnn_and_other_us"] = sum(us for us, _ in dev.values()) \
+        - kern["sum_us"] - kern["copies_us"]
+    kern["device_launches"] = sum(n for _, n in dev.values())
+    emit({"phase": "all_slice", "contig_bp": ALL_FIXTURE_LEN,
+          "reads": n_reads, "planted_snps": len(snps),
+          "planted_indels": len(indels), "fixture_s": t_fixture,
+          "snp_chunks": metrics["counts"].get("snp_chunks"),
+          "cohorts": cohorts, "indel_chunks": n_chunks,
+          "snp_candidates": metrics["counts"].get("snp_candidates"),
+          "indel_candidates": metrics["counts"].get("indel_candidates"),
+          "records": records, "rounding_cases": len(cases),
+          "cases_past_one_unit": sum(1 for d in cases if d.get("units", 1) > 1),
+          "hiq_records": len(hiq["cuda"]), "phased_sites": len(pmaps["cuda"]),
+          "phase_blocks": len(blocks),
+          "largest_block_sites": max(blocks.values()),
+          "block_cap_limit_sites": cfg.phase_cell_budget // (1 << 15),
+          "artifact_reads": len(bams[0]), "artifact_tagged": tagged,
+          "cuda_wall_s": wall, "cuda_timers_s": metrics["timers_s"],
+          "cpu_wall_s": runs["cpu"][1],
+          "cpu_timers_s": runs["cpu"][3]["timers_s"],
+          "cuda_skip_phased_bam_wall_s": skip_wall,
+          "cuda_skip_phased_bam_timers_s": skip_timers, **counts})
+    emit({"phase": "all_slice_profile", **prof})
+    emit({"phase": "all_slice_profile_kernels", **kern,
+          "launches_k3": K3.SNP_PILEUP_LAUNCHES,
+          "launches_k1": K.NW_TB_LAUNCHES})
+    return counts
+
+
 def main():
     import torch
 
@@ -875,6 +1108,7 @@ def main():
         snp_counts, fasta_p, bam_p = phase_snp_slice(tmp)
         k3_rows = phase_k3(fasta_p, bam_p,
                            snp_counts["SNP_PILEUP_LAUNCHES"])
+        all_counts = phase_all_slice(tmp)
 
     def pick(phase):
         return next(r for r in rows if r["phase"] == phase and
@@ -891,7 +1125,9 @@ def main():
         {"name": "nw_tb", "route": "cuda",
          "source": "nanocaller_tpu_torch/csrc/nw_tb.cu",
          "replaces": "nanocaller_tpu/align/pallas_nw.py:102",
-         "launches": counts["NW_TB_LAUNCHES"],
+         "launches": all_counts["NW_TB_LAUNCHES"],
+         "launches_by_path": {"indels": counts["NW_TB_LAUNCHES"],
+                              "all": all_counts["NW_TB_LAUNCHES"]},
          "max_abs_err": max_err("K1_nw_tb"),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -899,7 +1135,9 @@ def main():
         {"name": "nw_walk", "route": "cuda",
          "source": "nanocaller_tpu_torch/csrc/nw_walk.cu",
          "replaces": "nanocaller_tpu/align/batch_nw.py:134",
-         "launches": counts["NW_WALK_LAUNCHES"],
+         "launches": all_counts["NW_WALK_LAUNCHES"],
+         "launches_by_path": {"indels": counts["NW_WALK_LAUNCHES"],
+                              "all": all_counts["NW_WALK_LAUNCHES"]},
          "max_abs_err": max_err("K2_nw_walk"),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -907,7 +1145,9 @@ def main():
         {"name": "snp_pileup", "route": "cuda",
          "source": "nanocaller_tpu_torch/csrc/snp_pileup.cu",
          "replaces": "nanocaller_tpu/snp_caller.py:417 and :483",
-         "launches": snp_counts["SNP_PILEUP_LAUNCHES"],
+         "launches": all_counts["SNP_PILEUP_LAUNCHES"],
+         "launches_by_path": {"snps": snp_counts["SNP_PILEUP_LAUNCHES"],
+                              "all": all_counts["SNP_PILEUP_LAUNCHES"]},
          "max_abs_err": max_err("K3_snp_pileup", k3_rows),
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],

@@ -1,57 +1,68 @@
-"""End-to-end orchestration of the port: `--mode snps --cpu 1` (without
---phase) and `--mode indels --cpu 1`.
+"""End-to-end orchestration of the port: SNPs → phasing → indels → final
+VCF, at `--cpu 1`.
 
-The inline paths of nanocaller_tpu/caller.py::run, with the same output
-contract for those modes:
+The inline path of nanocaller_tpu/caller.py::run, with the same output
+contract:
 
-    PREFIX.unfiltered.snps.vcf.gz   all SNP candidate records (snps)
-    PREFIX.snps.vcf.gz              PASS SNP calls (snps)
-    PREFIX.indels.vcf.gz            decomposed non-SNP calls (indels)
+    PREFIX.unfiltered.snps.vcf.gz   all SNP candidate records (snps, all)
+    PREFIX.snps.vcf.gz              PASS SNP calls (snps, all)
+    PREFIX.snps.phased.vcf.gz       phased SNPs (all, snps --phase)
+    PREFIX.indels.vcf.gz            decomposed non-SNP calls (indels, all)
+    PREFIX.vcf.gz                   phased SNPs + indels (all)
 
-snps: BAM → one observation payload per decode group (host decode +
+and, per diploid contig, the haplotagged BAM artifact
+intermediate_phase_files/CONTIG.phased.bam (unless --skip_phased_bam).
+
+SNPs: BAM → one observation payload per decode group (host decode +
 scan) → neighbour selection and pileups on the device (kernel K3) → SNP
 CNN → genotype decode (snp_caller.py).
-indels: BAM → candidates (host decode + scan) → read-vs-ref and allele
-NW on the device (kernels K1 + K2) → indel CNN → decode → rtg-style
-decomposition. The input BAM is expected to be haplotagged (HP/PS), as
-the reference's indel stage reads it.
+Phasing, on the host: per diploid contig, the PASS SNP VCF's records
+split by QUAL (as written) at --phase_qual_score; the contig's reads
+decoded at the high-QUAL het sites; exact wMEC (phase/); the reads'
+haplotags, the phased VCF and the artifact, written on a thread while
+the indel stage runs.
+Indels: BAM → candidates (host decode + scan, the phasing's haplotags
+injected in memory) → read-vs-ref and allele NW on the device (kernels
+K1 + K2) → indel CNN → decode → rtg-style decomposition. In
+`--mode indels` the BAM's own HP/PS tags are read, as the reference's
+indel stage does.
 
-`--resume` reuses completed chunks through the run manifest. Other
-modes and `--cpu N > 1` raise NotImplementedError naming the ROADMAP
-item that brings them.
+`--resume` reuses completed SNP and indel chunks through the run
+manifest; phasing reruns, as in the JAX package. `--cpu N > 1` and the
+other options not ported yet raise NotImplementedError naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
+import threading
+import time
 
 from .config import Config, resolve_exclude_bed
 from .indel_caller import (IndelCallerState, decode_diploid_indels,
                            decode_haploid_indels, infer_haploid_indel_many,
                            infer_indel_many, write_indel_vcf)
-from .io.bam import open_alignment
+from .io.bam import BamWriter, open_alignment
 from .io.bed import BedIntervals
 from .io.fasta import FastaFile
+from .io.vcf import VcfReader, VcfWriter, concat
+from .phase.mec import haplotag_reads, phase_contig, write_phased_vcf
+from .pileup.engine import decode_reads_parallel
 from .pileup.indel_features import get_indel_candidates
 from .runtime.chunker import get_chunks, get_regions_list
-from .runtime.metrics import Metrics
+from .runtime.metrics import Metrics, profile_region
 from .runtime.scheduler import Progress, RunManifest
 from .snp_caller import call_snps
 
 
 def _check_supported(cfg):
-    if cfg.mode == "all" or (cfg.mode == "snps" and cfg.phase):
-        raise NotImplementedError(
-            "--mode %s%s is not ported yet: the port runs --mode snps "
-            "(without --phase) and --mode indels; phasing is ROADMAP queue "
-            "A item A3 (--mode all --cpu 1 with phasing)"
-            % (cfg.mode, " --phase" if cfg.phase else ""))
     if cfg.cpu != 1:
         raise NotImplementedError(
             "--cpu %d is not ported yet: the port runs --cpu 1; feature "
-            "workers are ROADMAP queue A item A5 (--cpu N workers)"
-            % cfg.cpu)
+            "workers and the phase→indel DAG are ROADMAP queue A item A5 "
+            "(--cpu N workers)" % cfg.cpu)
     if cfg.num_processes > 1 or cfg.num_shards > 1:
         raise NotImplementedError(
             "multi-process / sharded runs are ROADMAP queue A item A6 "
@@ -63,8 +74,10 @@ def _check_supported(cfg):
 def run(cfg: Config, progress=None):
     """Execute the configured pipeline; returns dict of output paths."""
     _check_supported(cfg)
+    want_phase = cfg.mode == "all" or (cfg.mode == "snps" and cfg.phase)
+    want_indels = cfg.mode in ("indels", "all")
     state = IndelCallerState.create(cfg.indel_model, device=cfg.device) \
-        if cfg.mode == "indels" else None
+        if want_indels else None
 
     os.makedirs(cfg.output, exist_ok=True)
     cfg.dump(os.path.join(cfg.output, "args"))
@@ -95,27 +108,16 @@ def run(cfg: Config, progress=None):
 
     regions_list = get_regions_list(cfg, bam)
     outputs = {"snps": None, "phased_snps": None, "indels": None, "final": None}
-    if cfg.mode == "snps":
+    if cfg.mode in ("snps", "all"):
         chunks = get_chunks(regions_list, cfg.cpu)
-        with metrics.timer("snp_calling"):
+        with metrics.timer("snp_calling"), profile_region(
+                os.path.join(cfg.output, "trace"), enabled=cfg.profile):
             outputs["snps"] = call_snps(
                 cfg, bam, fasta, regions_list, chunks, cfg.output,
                 exclude=exclude, progress=progress, manifest=manifest,
                 metrics=metrics)
         metrics.count("snp_chunks", len(chunks))
-    else:
-        outputs["indels"] = _call_indels(cfg, state, bam, fasta,
-                                         regions_list, exclude, manifest,
-                                         metrics, progress)
-    if owns_progress:
-        bar.close()
-    metrics.dump(os.path.join(cfg.output, "metrics.json"))
-    return outputs
 
-
-def _call_indels(cfg, state, bam, fasta, regions_list, exclude, manifest,
-                 metrics, progress):
-    """The inline indel stage; returns the indels.vcf.gz path."""
     # contig extents (indelCaller.py:299-305)
     contigs = {}
     for c, s, e, ploidy in regions_list:
@@ -125,6 +127,153 @@ def _call_indels(cfg, state, bam, fasta, regions_list, exclude, manifest,
             contigs[c][1] = min(contigs[c][1], s)
             contigs[c][2] = max(contigs[c][2], e)
 
+    tags_by_contig = {}
+    artifacts = []  # (thread, {"s": seconds, "error": exception})
+    if want_phase:
+        with metrics.timer("phasing"):
+            outputs["phased_snps"] = _phase(cfg, bam, outputs["snps"],
+                                            contigs, metrics,
+                                            tags_by_contig, artifacts)
+    if want_indels:
+        outputs["indels"] = _call_indels(cfg, state, bam, fasta,
+                                         regions_list, contigs, exclude,
+                                         manifest, metrics, progress,
+                                         tags_by_contig)
+    if cfg.mode == "all" and outputs["phased_snps"] and outputs["indels"]:
+        final = os.path.join(cfg.output, "%s.vcf.gz" % cfg.prefix)
+        concat([outputs["phased_snps"], outputs["indels"]], final)
+        outputs["final"] = final
+    for th, res in artifacts:
+        th.join()
+        metrics.timers["phase.haplotag_bam"] += res["s"]
+    errors = [res["error"] for _, res in artifacts if res["error"]]
+    if errors:
+        raise errors[0]
+    if owns_progress:
+        bar.close()
+    metrics.dump(os.path.join(cfg.output, "metrics.json"))
+    return outputs
+
+
+def _phase(cfg, bam, snp_vcf, contigs, metrics, tags_by_contig, artifacts):
+    """Phase each diploid contig from the written PASS SNP VCF (haploid
+    contigs are copied unphased); fills tags_by_contig with each
+    contig's {qname: (hp, ps)} and starts the artifact writers. Returns
+    the snps.phased.vcf.gz path, or None without SNP records."""
+    phase_dir = os.path.join(cfg.output, "intermediate_phase_files")
+    os.makedirs(phase_dir, exist_ok=True)
+    if not os.path.exists(snp_vcf):
+        return None
+    snp_reader = VcfReader(snp_vcf)
+    phased_files = []
+    for name, (c, s, e, ploidy) in contigs.items():
+        out_vcf = os.path.join(phase_dir, "%s.snps.phased.vcf.gz" % name)
+        recs = list(snp_reader.fetch(name, s, e))
+        if ploidy == "haploid":
+            # no phasing for haploid contigs (indelCaller.py:193-211)
+            with VcfWriter(out_vcf, snp_reader.header_lines) as w:
+                for r in recs:
+                    w.write(r)
+            phased_files.append(out_vcf)
+            continue
+        # QUAL as written (%.3f), not the in-memory probability: the
+        # split is the JAX package's, on the same text
+        hiq = [r for r in recs if r.qual_value >= cfg.phase_qual_score]
+        lowq = [r for r in recs if r.qual_value < cfg.phase_qual_score]
+        with metrics.timer("phase.decode"):
+            # site-filtered decode: phasing only needs read codes at the
+            # het sites
+            het_sites = sorted(r.pos - 1 for r in hiq)
+            rw = decode_reads_parallel(bam, name, max(0, s - 1), e,
+                                       keep_seq=False, sites=het_sites)
+        with metrics.timer("phase.mec"):
+            result, phase_map = phase_contig(
+                hiq, rw, distrust=cfg.enable_whatshap,
+                cell_budget=cfg.phase_cell_budget)
+        tags = haplotag_reads(rw, result)
+        tags_by_contig[name] = tags
+
+        class _Recs:
+            header_lines = snp_reader.header_lines
+
+            def __iter__(self):
+                return iter(hiq)
+
+        write_phased_vcf(_Recs(), out_vcf, phase_map)
+        phased_files.append(out_vcf)
+        if lowq:
+            lowq_vcf = os.path.join(
+                phase_dir, "%s.snps.lowq.unphased.vcf.gz" % name)
+            with VcfWriter(lowq_vcf, snp_reader.header_lines) as w:
+                for r in lowq:
+                    w.write(r)
+            phased_files.append(lowq_vcf)
+        # the haplotagged BAM is a user artifact only (the indel stage
+        # takes the tags in memory): written on a thread that overlaps
+        # the indel stage, joined before run() returns
+        if not cfg.skip_phased_bam:
+            artifacts.append(_start_artifact_writer(
+                cfg, name, max(0, s - 1), e, tags,
+                _phased_path(phase_dir, name)))
+    if not phased_files:
+        return None
+    phased_out = os.path.join(cfg.output, "%s.snps.phased.vcf.gz" % cfg.prefix)
+    concat(phased_files, phased_out)
+    return phased_out
+
+
+def _start_artifact_writer(cfg, contig, start0, end0, tags, out_path):
+    """Write one contig's haplotagged BAM artifact on a background thread
+    with its own FASTA and alignment handles (readers are not
+    thread-safe). Returns (thread, {"s": seconds, "error": exception})."""
+    res = {"s": 0.0, "error": None}
+
+    def _write():
+        t0 = time.perf_counter()
+        try:
+            abam = open_alignment(cfg.bam, fasta=FastaFile(cfg.ref))
+            try:
+                write_haplotagged_bam(abam, out_path, contig, start0, end0,
+                                      tags)
+            finally:
+                abam.close()
+        except Exception as e:  # noqa: BLE001 — re-raised by run()
+            res["error"] = e
+        res["s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=_write, daemon=True)
+    th.start()
+    return th, res
+
+
+def _phased_path(phase_dir, contig):
+    """Per-contig haplotagged artifact path (BAM: the port reads no
+    CRAM yet)."""
+    return os.path.join(phase_dir, "%s.phased.bam" % contig)
+
+
+def write_haplotagged_bam(bam, out_path, contig, start0, end0, tags):
+    """Write the phased-BAM artifact (whatshap haplotag | samtools view
+    equivalent, indelCaller.py:243-251): the window's reads with HP/PS
+    set from tags. The JAX package's native retagger splices the tags
+    into the record bytes; this Python writer (that package's fallback)
+    re-encodes each record, so the BGZF bytes differ while the decoded
+    records are the same."""
+    with BamWriter(out_path, bam.references, bam.lengths) as w:
+        for read in bam.fetch(contig, start0, end0):
+            t = tags.get(read.qname)
+            if t is not None:
+                read.tags["HP"] = t[0]
+                read.tags["PS"] = t[1]
+            w.write(read)
+    return out_path
+
+
+def _call_indels(cfg, state, bam, fasta, regions_list, contigs, exclude,
+                 manifest, metrics, progress, tags_by_contig):
+    """The inline indel stage; returns the indels.vcf.gz path. A chunk's
+    reads take the haplotags its contig's phasing found (haploid contigs
+    are not phased, so theirs keep the BAM's own)."""
     indel_chunks = get_chunks(regions_list, cfg.cpu, max_chunk_size=100000)
     order = sorted(range(len(indel_chunks)),
                    key=lambda i: (list(contigs).index(indel_chunks[i]["chrom"]),
@@ -155,6 +304,7 @@ def _call_indels(cfg, state, bam, fasta, regions_list, exclude, manifest,
                     impute_indel_phase=cfg.impute_indel_phase,
                     exclude=exclude,
                     ploidy=chunk.get("ploidy", "diploid"),
+                    tags=tags_by_contig.get(chunk["chrom"]),
                     device=state.device)
             yield idx, batch
 

@@ -70,8 +70,9 @@ def build_parser():
                            "device-to-host latency spikes behind compute; "
                            "output is order-invariant)")
     cfgg.add_argument("--profile", action="store_true",
-                      help="SNP-stage trace (accepted for compatibility; "
-                           "not ported: use torch.profiler around run).")
+                      help="capture a torch.profiler trace of the SNP "
+                           "stage into OUTPUT/trace/trace.json (Chrome "
+                           "trace format)")
     cfgg.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                       help="torch device of the port (the counterpart of "
                            "the JAX CLI's JAX_PLATFORMS); cuda without a "
@@ -114,8 +115,9 @@ def build_parser():
     phase.add_argument("--phase_cell_budget", type=int, default=600_000_000,
                        help="exact-wMEC trellis cell budget; bigger "
                             "keeps the whatshap cap-15 selection on "
-                            "larger phase blocks at linear DP cost "
-                            "(tools/phase_cap_study.py)")
+                            "larger phase blocks at linear DP cost and "
+                            "memory (the port's trellis stores every "
+                            "column: about 10 bytes a cell)")
     phase.add_argument("--enable_whatshap", action="store_true")
     phase.add_argument("--skip_phased_bam", action="store_true",
                        help="do not write the per-contig haplotagged "
@@ -123,10 +125,12 @@ def build_parser():
                             "it; phase→indel handoff is in-memory)")
     phase.add_argument("--phased_bam_compression", type=int, default=1,
                        choices=range(1, 10), metavar="[1-9]",
-                       help="deflate level of the haplotagged BAM "
-                            "artifact (1 = fastest, 6 = samtools default "
-                            "size; CRAM artifacts use the CRAM codecs and "
-                            "ignore this)")
+                       help="deflate level of the JAX CLI's native "
+                            "haplotagged-BAM writer; accepted for "
+                            "compatibility: the port writes the artifact "
+                            "with its Python BAM writer at that writer's "
+                            "default level, as the JAX CLI's fallback "
+                            "does")
     return p
 
 

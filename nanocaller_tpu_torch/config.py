@@ -56,10 +56,10 @@ class Config:
     enable_whatshap: bool = False
     # exact-wMEC trellis cell budget: the active-read cap of a block is
     # lowered until sites × 2^cap fits (phase/wmec._block_cap). The
-    # default gives whatshap's cap 15 to blocks ≤ ~18k het sites and
-    # cap 13 to a 70k-site whole-contig block (~2.4 GB parent storage,
-    # ~4 s native DP); tools/phase_cap_study.py has the quality/time
-    # curves behind this choice.
+    # default gives whatshap's cap 15 to blocks ≤ 18,310 het sites. The
+    # port's Python trellis stores every cell (~10 bytes each), and
+    # admits 1× the budget where the JAX package's native trellis admits
+    # 16× (ROADMAP §C).
     phase_cell_budget: int = 600_000_000
     # framework extras (not in reference)
     # rows per SNP CNN forward (snp_caller.infer_snp_group); no padding
@@ -75,7 +75,8 @@ class Config:
     suppress_progress: bool = False
     verbose: bool = False
     skip_phased_bam: bool = False  # skip the per-contig phased BAM artifact
-    # deflate level of the phased-BAM artifact (phasing slice)
+    # deflate level of the JAX CLI's native phased-BAM writer; the port's
+    # Python writer keeps its default (accepted for compatibility)
     phased_bam_compression: int = 1
     resume: bool = False  # reuse completed chunks from a prior run's manifest
     # >0: stall supervision of the JAX CLI (not ported; must stay 0)
@@ -86,7 +87,7 @@ class Config:
     coordinator: str = ""
     num_processes: int = 1
     process_id: int = 0
-    profile: bool = False  # SNP-stage trace of the JAX CLI (not ported)
+    profile: bool = False  # torch.profiler trace of the SNP stage
     # torch device of the port: "cuda" (default) or "cpu"; "cuda" without
     # a GPU raises (runtime/device.py)
     device: str = "cuda"

@@ -74,15 +74,23 @@ class ReadWindow:
         return len(self.qnames)
 
 
-def decode_reads(bam, contig, start, end, flag_exclude=None, keep_seq=False):
+def decode_reads(bam, contig, start, end, flag_exclude=None, keep_seq=False,
+                 sites=None):
     """Decode reads overlapping [start, end) (0-based) into a ReadWindow.
 
     flag_exclude defaults to the reference's pileup filter
     0x4|0x100|0x200|0x400|0x800 (generate_SNP_pileups.py:151-154;
     --supplementary is force-disabled at NanoCaller:160 so 0x800 stays).
+
+    sites: optional sorted 0-based positions; the window then keeps only
+    the aligned events at those positions and the deletions spanning one
+    of them (what phasing reads), as the JAX package's site-filtered
+    decode does.
     """
     if flag_exclude is None:
         flag_exclude = DEFAULT_FLAG_FILTER
+    if sites is not None:
+        sites = np.asarray(sites, dtype=np.int64)
     qnames, flags, strands, rstarts, rends, hps, pss, seqs = [], [], [], [], [], [], [], []
     ev_rid, ev_pos, ev_code, ev_qpos = [], [], [], []
     del_rid, del_start, del_len = [], [], []
@@ -136,7 +144,7 @@ def decode_reads(bam, contig, start, end, flag_exclude=None, keep_seq=False):
             return np.zeros(0, dtype)
         return np.concatenate(parts).astype(dtype, copy=False)
 
-    return ReadWindow(
+    rw_out = ReadWindow(
         contig=contig,
         start=start,
         end=end,
@@ -159,6 +167,34 @@ def decode_reads(bam, contig, start, end, flag_exclude=None, keep_seq=False):
         ins_len=np.asarray(ins_len, np.int32),
         seqs=seqs,
     )
+    if sites is not None:
+        # full decode, then filter the aligned events to the sites
+        idx = np.searchsorted(sites, rw_out.ev_pos)
+        hit = idx < len(sites)
+        hit[hit] = sites[idx[hit]] == rw_out.ev_pos[hit]
+        rw_out.ev_rid = rw_out.ev_rid[hit]
+        rw_out.ev_pos = rw_out.ev_pos[hit]
+        rw_out.ev_code = rw_out.ev_code[hit]
+        rw_out.ev_qpos = rw_out.ev_qpos[hit]
+        # deletions: keep only site-spanning ones (the rest are invisible
+        # downstream)
+        dlo = np.searchsorted(sites, rw_out.del_start)
+        dk = dlo < len(sites)
+        dk[dk] = sites[dlo[dk]] < (rw_out.del_start + rw_out.del_len)[dk]
+        rw_out.del_rid = rw_out.del_rid[dk]
+        rw_out.del_start = rw_out.del_start[dk]
+        rw_out.del_len = rw_out.del_len[dk]
+    return rw_out
+
+
+def decode_reads_parallel(bam, contig, start, end, sites=None, keep_seq=False,
+                          flag_exclude=None):
+    """The JAX package's threaded window decode, which splits a long
+    window across threads of its native decoder. Without that library
+    (the native slice brings it) it is one decode_reads call, whose
+    output the split must equal."""
+    return decode_reads(bam, contig, start, end, flag_exclude=flag_exclude,
+                        keep_seq=keep_seq, sites=sites)
 
 
 def column_counts(rw: ReadWindow, start, end):

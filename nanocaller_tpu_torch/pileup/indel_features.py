@@ -419,13 +419,16 @@ def extract_candidate_windows(rw, cview, v0, window_after, names0, names1):
 def get_indel_candidates(bam, fasta, chunk, *, seq_type="ont", mincov=4,
                          maxcov=160, ins_t=0.4, del_t=0.6, win_size=40,
                          small_win_size=4, impute_indel_phase=False,
-                         exclude=None, ploidy="diploid", rw=None,
+                         exclude=None, ploidy="diploid", rw=None, tags=None,
                          device="cuda"):
     """Full indel feature generation for one chunk (1-based chunk coords).
 
     Diploid returns IndelBatch; haploid returns HaploidIndelBatch.
 
     When rw is None the window is decoded with engine.decode_reads.
+    tags: optional {qname: (hp, ps)} haplotags injected right after the
+    decode (the phase→indel handoff in memory, in place of a phased-BAM
+    round trip); a read absent from it keeps the BAM's own HP/PS.
     All read-vs-ref MSA alignments and consensus-vs-ref allele
     alignments of the chunk go through the port's BatchAligner on
     `device` (kernels K1 + K2 on "cuda", their plain twins on "cpu");
@@ -438,6 +441,12 @@ def get_indel_candidates(bam, fasta, chunk, *, seq_type="ont", mincov=4,
     scan_lo = max(0, start0 - 10 - win_size)
     if rw is None:
         rw = decode_reads(bam, contig, scan_lo, end0, keep_seq=True)
+    if tags:
+        for rid_, qname in enumerate(rw.qnames):
+            t = tags.get(qname)
+            if t is not None:
+                rw.hp[rid_] = t[0]
+                rw.ps[rid_] = t[1]
     chrom_len = fasta.get_reference_length(contig)
 
     scan_cols = np.arange(start0, end0, dtype=np.int64)

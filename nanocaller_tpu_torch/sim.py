@@ -4,7 +4,8 @@ Generates a reference FASTA plus a coordinate-sorted, indexed BAM with
 planted SNPs and indels on two haplotypes, optional HP/PS haplotags, and
 configurable substitution + sequencing-indel error rates — entirely with
 the port's I/O stack. A copy of the part of nanocaller_tpu/sim.py that
-chip_smoke.py needs to write its fixture (same draws from the same seed).
+chip_smoke.py needs to write its fixtures (same draws from the same
+seed), with the port's own fixture writers.
 """
 
 from __future__ import annotations
@@ -229,6 +230,47 @@ def write_bam(path, contig, contig_len, reads, tags_by_name=None, mapq=60,
         for r in recs:
             w.write(r)
     return path
+
+
+def write_all_fixture(out_dir, length, seed, snp_every=1000,
+                      indel_every=5000, depth=30, read_len=8000,
+                      error_rate=0.03, indel_error_rate=0.01,
+                      contig="chr_t"):
+    """The `--mode all` fixture: one contig of `length` bp with a planted
+    SNP every `snp_every` bp (het1, het2, hom in turn; the alt never the
+    ref base) and a planted 1-6 bp insertion or deletion every
+    `indel_every` bp (het1, het2, hom in turn), away from the SNPs; reads
+    from both haplotypes with substitution and 1-2 bp indel errors,
+    written to an UNTAGGED BAM (no HP/PS: the run's phasing tags them).
+    Returns (fasta path, bam path, snps, indels, number of reads)."""
+    import os
+
+    from .io.fasta import write_fasta
+
+    rng = np.random.default_rng(seed)
+    ref = random_seq(rng, length)
+    gts = ("het1", "het2", "hom")
+    snps = []
+    for k, p in enumerate(range(snp_every // 2, length - snp_every // 2,
+                                snp_every)):
+        alt = BASES[(BASES.index(ref[p]) + 1 + k % 3) % 4]
+        snps.append((p, alt, gts[k % 3]))
+    indels = []
+    for k, p in enumerate(range(indel_every // 2 + snp_every // 4,
+                                length - indel_every // 2, indel_every)):
+        if k % 2:
+            indels.append((p, "del", 1 + k % 6, gts[k % 3]))
+        else:
+            indels.append((p, "ins", "ACGTTG"[: 1 + k % 6], gts[k % 3]))
+    reads = make_diploid_readset(rng, ref, snps=snps, indels=indels,
+                                 depth=depth, read_len=read_len,
+                                 error_rate=error_rate,
+                                 indel_error_rate=indel_error_rate)
+    fasta_p = os.path.join(out_dir, "all_ref.fa")
+    bam_p = os.path.join(out_dir, "all_reads.bam")
+    write_fasta(fasta_p, {contig: ref})
+    write_bam(bam_p, contig, length, reads)
+    return fasta_p, bam_p, snps, indels, len(reads)
 
 
 TIE_KINDS = ("homopolymer", "str", "identical")

@@ -4,7 +4,7 @@ small haplotagged fixture (indels) and on one with planted SNPs (snps).
 The decompressed VCF bytes must be identical: indels.vcf.gz, and
 unfiltered.snps.vcf.gz with snps.vcf.gz. On these seeds no probability
 delta crosses a %.3f / %.4f rounding, so no one-unit allowance is
-needed."""
+needed. The phasing modes are in test_torch_all.py."""
 
 import gzip
 import json
@@ -104,11 +104,15 @@ def test_snp_vcfs_identical_to_jax_cli(snp_fixture):
 
 
 @pytest.mark.parametrize("change", [
-    dict(mode="all"), dict(mode="snps", phase=True), dict(cpu=2),
+    dict(mode="all", cpu=2), dict(mode="all", cram=True), dict(cpu=2),
     dict(mode="snps", dedup_transfer=False),
     dict(mode="snps", snp_group_payload=False)])
 def test_unported_modes_raise(fixture, change):
     kw = _kw(fixture, "nope")
     kw.update(change)
+    if kw.pop("cram", False):  # CRAM input: the file's magic bytes decide
+        kw["bam"] = os.path.join(fixture[0], "reads.cram")
+        with open(kw["bam"], "wb") as fh:
+            fh.write(b"CRAM\x03\x00")
     with pytest.raises(NotImplementedError):
         run(Config(device="cpu", **kw))

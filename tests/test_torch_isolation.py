@@ -31,6 +31,8 @@ mods = [m.name for m in pkgutil.walk_packages(nanocaller_tpu_torch.__path__,
                                               "nanocaller_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+assert {"nanocaller_tpu_torch.phase.mec", "nanocaller_tpu_torch.phase.wmec",
+        "nanocaller_tpu_torch.phase.wmec_oracle"} <= set(mods), mods
 import chip_smoke
 assert callable(chip_smoke.main)
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCK]
