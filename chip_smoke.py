@@ -5,9 +5,10 @@
 
 Phases, each printing one JSON line per case:
 
-1. the card (nvidia-smi name and power limit) and the nvcc build of the
+1. the card (nvidia-smi name and power limit), the nvcc build of the
    kernels from the sources in this checkout (one nvcc per source, all
-   started together);
+   started together) and the g++ build of the native host library
+   (io/native/ncio.cpp);
 2. K1 nw_tb against its plain twin, exactly equal, with kernel, twin
    and bound times: at the buckets (192,192), (256,192), (512,512) with
    B = 1024 and both scoring sets; at the main path's launch shapes
@@ -59,7 +60,18 @@ Phases, each printing one JSON line per case:
    trellis's cap-15 limit and the phasing timers; a cuda run with
    --skip_phased_bam must give the same VCF bytes and no artifact; then
    the cuda run under torch.profiler, with the device time of K1, K2,
-   K3, the CNNs and the copies.
+   K3, the CNNs and the copies. The host work (decode, MSA projection,
+   read selection, wMEC trellis, the artifact's retagger) runs on the
+   native library;
+10. a SNP decode group over the payload caps: the SNP fixture's first
+   two-member group through the SNP stage on cuda with the read cap
+   lowered between its members' decoded reads and its own, so that each
+   member goes as a group of one (one K3 launch a member cohort); the
+   VCFs must hold the uncapped run's records (SNP rules);
+11. CRAM input: a 500 kb cut of phase 9's fixture written as BAM and, by
+   the port's CramWriter, as CRAM, each through `--mode all --cpu 1` on
+   cuda: the five VCFs byte-identical, the .phased.cram artifact
+   record-identical to the .phased.bam one.
 
 Then one JSON line with every kernel's launches (on the --mode all run;
 each path's own under launches_by_path), error and times, the
@@ -158,6 +170,9 @@ PARITY_ATOL = 2e-5
 # an indel every 5,000 bp (about 1,300 planted het sites, 1-2 kb apart,
 # which 8 kb reads link)
 ALL_FIXTURE_LEN = 2_000_000
+# the CRAM phase's contig: a 500 kb cut of the --mode all fixture (the
+# same seed and densities), run from a BAM and from a CRAM
+CRAM_FIXTURE_LEN = 500_000
 
 
 def emit(obj):
@@ -724,7 +739,7 @@ def k3_cases(fasta_p, bam_p):
     from nanocaller_tpu_torch.io.fasta import FastaFile
     from nanocaller_tpu_torch.pileup import snp_pileup as K3
     from nanocaller_tpu_torch.pileup.snp_features import \
-        get_snp_group_payload
+        get_snp_group_payloads
     from nanocaller_tpu_torch.runtime.chunker import (get_chunks,
                                                       get_regions_list)
     from nanocaller_tpu_torch.sim import random_group_wire
@@ -741,7 +756,7 @@ def k3_cases(fasta_p, bam_p):
 
     def cohorts(label, members, maxcov, ploidy="diploid"):
         members = [dict(m, ploidy=ploidy) for m in members]
-        gf = get_snp_group_payload(
+        [gf] = get_snp_group_payloads(
             bam, fasta, members, seq_type=cfg.sequencing, mincov=cfg.mincov,
             maxcov=maxcov, min_allele_freq=cfg.min_allele_freq,
             min_nbr_sites=cfg.min_nbr_sites, threshold=cfg.threshold)
@@ -901,16 +916,25 @@ def _vcf_phase_sets(path):
     return pos, pmap
 
 
-def _bam_records(path):
-    """Decoded records of a BAM: every field the artifact carries, tags
-    in order."""
-    from nanocaller_tpu_torch.io.bam import BamReader
+def _alignment_records(path, fasta):
+    """Decoded records of a BAM or CRAM: the fields a CRAM round trip
+    keeps (=/X read as M), tags as a dict."""
+    from nanocaller_tpu_torch.io.bam import open_alignment
 
-    bam = BamReader(path)
-    out = [(r.qname, r.flag, r.ref_id, r.pos, r.mapq, list(r.cigar), r.seq,
-            bytes(r.qual), list(r.tags.items()))
-           for c in bam.references for r in bam.fetch(c)]
-    bam.close()
+    aln = open_alignment(path, fasta=fasta)
+    out = []
+    for c in aln.references:
+        for r in aln.fetch(c):
+            cigar = []
+            for op, ln in r.cigar:
+                op = 0 if op in (7, 8) else op
+                if cigar and cigar[-1][0] == op:
+                    cigar[-1] = (op, cigar[-1][1] + ln)
+                else:
+                    cigar.append((op, ln))
+            out.append((r.qname, r.flag, r.ref_id, r.pos, r.mapq, cigar,
+                        r.seq, bytes(r.qual), dict(r.tags)))
+    aln.close()
     return out
 
 
@@ -1009,7 +1033,8 @@ def phase_all_slice(tmp):
     blocks = {}
     for _gt, ps in pmaps["cuda"].values():
         blocks[ps] = blocks.get(ps, 0) + 1
-    bams = [_bam_records(os.path.join(pdir(dev), "chr_t.phased.bam"))
+    bams = [_alignment_records(os.path.join(pdir(dev), "chr_t.phased.bam"),
+                               fasta_p)
             for dev in ("cuda", "cpu")]
     if bams[0] != bams[1]:
         fail("the haplotagged BAM artifacts of the cuda and cpu runs differ")
@@ -1057,7 +1082,7 @@ def phase_all_slice(tmp):
           "hiq_records": len(hiq["cuda"]), "phased_sites": len(pmaps["cuda"]),
           "phase_blocks": len(blocks),
           "largest_block_sites": max(blocks.values()),
-          "block_cap_limit_sites": cfg.phase_cell_budget // (1 << 15),
+          "block_cap_limit_sites": 16 * cfg.phase_cell_budget // (1 << 15),
           "artifact_reads": len(bams[0]), "artifact_tagged": tagged,
           "cuda_wall_s": wall, "cuda_timers_s": metrics["timers_s"],
           "cpu_wall_s": runs["cpu"][1],
@@ -1069,6 +1094,157 @@ def phase_all_slice(tmp):
           "launches_k3": K3.SNP_PILEUP_LAUNCHES,
           "launches_k1": K.NW_TB_LAUNCHES})
     return counts
+
+
+def phase_a2a(tmp, fasta_p, bam_p):
+    """Phase 10: a SNP decode group over the payload caps on the card.
+    The SNP fixture's first two-member group through the SNP stage with
+    the read cap set between the members' decoded reads and the group's:
+    each member goes as a group of one (one K3 launch a member cohort),
+    and the VCFs must hold the uncapped group run's records (the SNP
+    rules of the cuda-vs-cpu comparison: the CNN runs on other
+    batches)."""
+    from nanocaller_tpu_torch import cli
+    from nanocaller_tpu_torch.io.bam import BamReader
+    from nanocaller_tpu_torch.io.fasta import FastaFile
+    from nanocaller_tpu_torch.pileup import snp_features as SF
+    from nanocaller_tpu_torch.pileup import snp_pileup as K3
+    from nanocaller_tpu_torch.pileup.engine import decode_reads
+    from nanocaller_tpu_torch.runtime.chunker import (get_chunks,
+                                                      get_regions_list)
+    from nanocaller_tpu_torch.snp_caller import _group_adjacent, call_snps
+
+    cfg = cli.config_from_args(["--bam", bam_p, "--ref", fasta_p, "--mode",
+                                "snps", "--cpu", "1", "--device", "cuda",
+                                "--prefix", "smoke", "--sample", "S"])
+    bam = BamReader(bam_p)
+    regions = get_regions_list(cfg, bam)
+    chunks = get_chunks(regions, cfg.cpu)
+    group = [c for _, c in
+             _group_adjacent(chunks, range(len(chunks)), cfg)[0]]
+    if len(group) != 2:
+        fail("the SNP fixture's first decode group has %d members, not 2"
+             % len(group))
+    # call_snps sizes its groups from the chunks it is given: keep these
+    # two together as the whole contig's run does
+    cfg.snp_group_span = sum(m["end"] - m["start"] + 1 for m in group)
+    contig = group[0]["chrom"]
+    windows = [(max(0, m["start"] - 1 - SF.SNP_HALO), m["end"] + SF.SNP_HALO)
+               for m in group]
+    n_group = decode_reads(bam, contig, windows[0][0], windows[-1][1]).n_reads
+    n_members = [decode_reads(bam, contig, lo, hi).n_reads
+                 for lo, hi in windows]
+    cap = max(n_members)
+    if not cap < n_group:
+        fail("no read cap sends the group member by member: members %s, "
+             "group %d reads" % (n_members, n_group))
+    saved = SF._GROUP_MAX_READS
+    runs = {}
+    for name, limit in (("whole", saved), ("capped", cap)):
+        out = os.path.join(tmp, "a2a_" + name)
+        os.makedirs(out)
+        cfg.output = out
+        SF._GROUP_MAX_READS = limit
+        try:
+            K3.reset_counters()
+            t0 = time.perf_counter()
+            call_snps(cfg, bam, FastaFile(fasta_p), regions,
+                      [dict(m) for m in group], out)
+            runs[name] = (K3.SNP_PILEUP_LAUNCHES, time.perf_counter() - t0,
+                          os.path.join(out, "smoke.snps.vcf.gz"))
+        finally:
+            SF._GROUP_MAX_READS = saved
+    if (runs["whole"][0], runs["capped"][0]) != (1, 2):
+        fail("K3 launched %d times for the whole group and %d for its "
+             "members, not 1 and 2" % (runs["whole"][0], runs["capped"][0]))
+    unf = lambda p: p.replace(".snps.vcf.gz", ".unfiltered.snps.vcf.gz")
+    n_all, d_all = compare_records(unf(runs["capped"][2]),
+                                   unf(runs["whole"][2]), "snp")
+    n_pass, d_pass = compare_records(runs["capped"][2], runs["whole"][2],
+                                     "snp")
+    for d in d_all + d_pass:
+        emit({"phase": "a2a_rounding_case", **d})
+    emit({"phase": "a2a", "members": [[m["start"], m["end"]]
+                                      for m in group],
+          "group_reads": n_group, "member_reads": n_members,
+          "group_max_reads": cap, "k3_launches_whole": runs["whole"][0],
+          "k3_launches_capped": runs["capped"][0],
+          "records_unfiltered": n_all, "records_pass": n_pass,
+          "rounding_cases": len(d_all) + len(d_pass),
+          "whole_s": runs["whole"][1], "capped_s": runs["capped"][1]})
+
+
+def phase_cram_all(tmp):
+    """Phase 11: `--mode all --cpu 1` on a CRAM on the card. A cut of
+    phase 9's fixture (CRAM_FIXTURE_LEN bp, the same seed and densities)
+    written as BAM and, through the port's CramWriter, as CRAM; both run
+    on cuda. The five VCFs must be byte-identical, and the .phased.cram
+    artifact record-identical to the .phased.bam one."""
+    from nanocaller_tpu_torch import cli
+    from nanocaller_tpu_torch.io.bam import BamReader
+    from nanocaller_tpu_torch.io.cram import CramWriter
+    from nanocaller_tpu_torch.sim import write_all_fixture
+
+    d = os.path.join(tmp, "cram_fixture")
+    os.makedirs(d)
+    fasta_p, bam_p, snps, indels, n_reads = write_all_fixture(
+        d, CRAM_FIXTURE_LEN, seed=2026, snp_every=1000, indel_every=5000,
+        depth=30, read_len=8000, error_rate=0.03, indel_error_rate=0.01)
+    cram_p = os.path.join(d, "reads.cram")
+    t0 = time.perf_counter()
+    br = BamReader(bam_p)
+    with CramWriter(cram_p, br.references, br.lengths, fasta_p) as w:
+        for c in br.references:
+            for r in br.fetch(c):
+                w.write(r)
+    br.close()
+    cram_write_s = time.perf_counter() - t0
+
+    outs, walls, timers = {}, {}, {}
+    for name, inp in (("bam", bam_p), ("cram", cram_p)):
+        out = os.path.join(tmp, "cram_all_" + name)
+        t0 = time.perf_counter()
+        outs[name] = cli.main([
+            "--bam", inp, "--ref", fasta_p, "--mode", "all", "--cpu", "1",
+            "--device", "cuda", "--output", out, "--prefix", "smoke",
+            "--sample", "S", "--suppress_progress_bar"])
+        walls[name] = time.perf_counter() - t0
+        with open(os.path.join(out, "metrics.json")) as fh:
+            timers[name] = json.load(fh)["timers_s"]
+    unf = lambda p: p.replace(".snps.vcf.gz", ".unfiltered.snps.vcf.gz")
+    records = {}
+    for key in ("unfiltered", "snps", "phased_snps", "indels", "final"):
+        a, b = [unf(outs[n]["snps"]) if key == "unfiltered" else outs[n][key]
+                for n in ("bam", "cram")]
+        with gzip.open(a) as fa, gzip.open(b) as fb:
+            data = fa.read()
+            if data != fb.read():
+                fail("--mode all on the CRAM changed %s" % key)
+        records[key] = sum(1 for l in data.splitlines()
+                           if not l.startswith(b"#"))
+    pdir = lambda n: os.path.join(tmp, "cram_all_" + n,
+                                  "intermediate_phase_files")
+    art_bam = os.path.join(pdir("bam"), "chr_t.phased.bam")
+    art_cram = os.path.join(pdir("cram"), "chr_t.phased.cram")
+    if os.path.exists(os.path.join(pdir("cram"), "chr_t.phased.bam")):
+        fail("the CRAM run wrote a phased BAM")
+    got, want = (_alignment_records(art_cram, fasta_p),
+                 _alignment_records(art_bam, fasta_p))
+    if got != want:
+        fail("the .phased.cram artifact's records differ from the "
+             ".phased.bam artifact's")
+    tagged = sum(1 for r in got if "HP" in r[-1])
+    if records["snps"] < len(snps) // 2 or records["indels"] < \
+            len(indels) // 2 or tagged < len(got) // 2:
+        fail("too little was called or tagged on the CRAM: %s, %d of %d "
+             "reads tagged" % (records, tagged, len(got)))
+    emit({"phase": "cram_all", "contig_bp": CRAM_FIXTURE_LEN,
+          "reads": n_reads, "bam_bytes": os.path.getsize(bam_p),
+          "cram_bytes": os.path.getsize(cram_p), "cram_write_s": cram_write_s,
+          "records": records, "artifact_reads": len(got),
+          "artifact_tagged": tagged, "bam_wall_s": walls["bam"],
+          "cram_wall_s": walls["cram"], "bam_timers_s": timers["bam"],
+          "cram_timers_s": timers["cram"]})
 
 
 def main():
@@ -1084,6 +1260,7 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     from nanocaller_tpu_torch.align import nw_kernels as K
+    from nanocaller_tpu_torch.io import native
     from nanocaller_tpu_torch.runtime.device import resolve_device
     import numpy as np
 
@@ -1094,10 +1271,15 @@ def main():
     t0 = time.perf_counter()
     lib = K.build()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.get_lib()
+    native_s = time.perf_counter() - t0
     resolve_device("cuda")  # also pins TF32 off and deterministic cuDNN
     emit({"phase": "setup", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s,
-          "library": os.path.relpath(lib, HERE)})
+          "library": os.path.relpath(lib, HERE),
+          "native_build_s": native_s,
+          "native_library": os.path.relpath(native.library_path(), HERE)})
 
     rng = np.random.default_rng(1)
     rows = phase_kernels(K, rng)
@@ -1109,6 +1291,8 @@ def main():
         k3_rows = phase_k3(fasta_p, bam_p,
                            snp_counts["SNP_PILEUP_LAUNCHES"])
         all_counts = phase_all_slice(tmp)
+        phase_a2a(tmp, fasta_p, bam_p)
+        phase_cram_all(tmp)
 
     def pick(phase):
         return next(r for r in rows if r["phase"] == phase and

@@ -50,12 +50,21 @@ def msa_sample(seq_list, v_pos, maxcov):
     return sample
 
 
-def star_msa_from_cigars(seqs, cigars, ref, mincov):
-    """Column projection + tensor given precomputed read-vs-ref cigars
-    (the numpy path, which the JAX package keeps as the bit-identical
-    oracle of its C++ projection)."""
+def star_msa_from_cigars(seqs, cigars, ref, mincov, use_native=True):
+    """Column projection + tensor given precomputed read-vs-ref cigars.
+
+    Runs the C++ projection of io/native (ncio_msa_project); the numpy
+    path below, taken with use_native=False, is its bit-identical oracle.
+    """
     if len(seqs) < mincov:
         return (0, 0, None, None, None)
+    if use_native:
+        from ..io.native import msa_project_native
+
+        tensor, cns = msa_project_native([_row_codes(s) for s in seqs],
+                                         cigars, _row_codes(ref),
+                                         width=MSA_WIDTH)
+        return (1, 1, tensor, cns, ref)
     rows, ref_row = project_alignments(seqs, cigars, ref)
     tensor, cns, ref_degapped = msa_tensor(rows, ref_row)
     return (1, 1, tensor, cns, ref_degapped)

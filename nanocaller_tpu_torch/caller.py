@@ -10,21 +10,25 @@ contract:
     PREFIX.indels.vcf.gz            decomposed non-SNP calls (indels, all)
     PREFIX.vcf.gz                   phased SNPs + indels (all)
 
-and, per diploid contig, the haplotagged BAM artifact
-intermediate_phase_files/CONTIG.phased.bam (unless --skip_phased_bam).
+and, per diploid contig, the haplotagged artifact
+intermediate_phase_files/CONTIG.phased.bam (CONTIG.phased.cram for a
+CRAM input; unless --skip_phased_bam).
 
-SNPs: BAM → one observation payload per decode group (host decode +
-scan) → neighbour selection and pileups on the device (kernel K3) → SNP
-CNN → genotype decode (snp_caller.py).
+The host work runs on the port's C++ library (io/native): the BAM/CRAM
+decode, the MSA projection, the phasing's read selection and trellis,
+and the BAM artifact's retagger.
+SNPs: BAM/CRAM → one observation payload per decode group (two-phase
+native decode + scan) → neighbour selection and pileups on the device
+(kernel K3) → SNP CNN → genotype decode (snp_caller.py).
 Phasing, on the host: per diploid contig, the PASS SNP VCF's records
 split by QUAL (as written) at --phase_qual_score; the contig's reads
 decoded at the high-QUAL het sites; exact wMEC (phase/); the reads'
 haplotags, the phased VCF and the artifact, written on a thread while
 the indel stage runs.
-Indels: BAM → candidates (host decode + scan, the phasing's haplotags
-injected in memory) → read-vs-ref and allele NW on the device (kernels
-K1 + K2) → indel CNN → decode → rtg-style decomposition. In
-`--mode indels` the BAM's own HP/PS tags are read, as the reference's
+Indels: BAM/CRAM → candidates (host decode + scan, the phasing's
+haplotags injected in memory) → read-vs-ref and allele NW on the device
+(kernels K1 + K2) → indel CNN → decode → rtg-style decomposition. In
+`--mode indels` the input's own HP/PS tags are read, as the reference's
 indel stage does.
 
 `--resume` reuses completed SNP and indel chunks through the run
@@ -46,6 +50,7 @@ from .indel_caller import (IndelCallerState, decode_diploid_indels,
                            infer_indel_many, write_indel_vcf)
 from .io.bam import BamWriter, open_alignment
 from .io.bed import BedIntervals
+from .io.cram import CramWriter
 from .io.fasta import FastaFile
 from .io.vcf import VcfReader, VcfWriter, concat
 from .phase.mec import haplotag_reads, phase_contig, write_phased_vcf
@@ -214,7 +219,7 @@ def _phase(cfg, bam, snp_vcf, contigs, metrics, tags_by_contig, artifacts):
         if not cfg.skip_phased_bam:
             artifacts.append(_start_artifact_writer(
                 cfg, name, max(0, s - 1), e, tags,
-                _phased_path(phase_dir, name)))
+                _phased_path(phase_dir, name, bam.format)))
     if not phased_files:
         return None
     phased_out = os.path.join(cfg.output, "%s.snps.phased.vcf.gz" % cfg.prefix)
@@ -223,18 +228,27 @@ def _phase(cfg, bam, snp_vcf, contigs, metrics, tags_by_contig, artifacts):
 
 
 def _start_artifact_writer(cfg, contig, start0, end0, tags, out_path):
-    """Write one contig's haplotagged BAM artifact on a background thread
-    with its own FASTA and alignment handles (readers are not
+    """Write one contig's haplotagged BAM/CRAM artifact on a background
+    thread with its own FASTA and alignment handles (readers are not
     thread-safe). Returns (thread, {"s": seconds, "error": exception})."""
     res = {"s": 0.0, "error": None}
+    # deflate threads of the native retagger: beside the indel stage in
+    # --mode all, leave the process's own core alone but keep at least
+    # two (the JAX package's budget)
+    threads = 0
+    if cfg.mode == "all":
+        threads = max(2, (os.cpu_count() or 2) - cfg.cpu)
 
     def _write():
         t0 = time.perf_counter()
         try:
-            abam = open_alignment(cfg.bam, fasta=FastaFile(cfg.ref))
+            fasta = FastaFile(cfg.ref)
+            abam = open_alignment(cfg.bam, fasta=fasta)
             try:
                 write_haplotagged_bam(abam, out_path, contig, start0, end0,
-                                      tags)
+                                      tags, fasta=fasta,
+                                      level=cfg.phased_bam_compression,
+                                      threads=threads)
             finally:
                 abam.close()
         except Exception as e:  # noqa: BLE001 — re-raised by run()
@@ -246,20 +260,35 @@ def _start_artifact_writer(cfg, contig, start0, end0, tags, out_path):
     return th, res
 
 
-def _phased_path(phase_dir, contig):
-    """Per-contig haplotagged artifact path (BAM: the port reads no
-    CRAM yet)."""
-    return os.path.join(phase_dir, "%s.phased.bam" % contig)
+def _phased_path(phase_dir, contig, fmt):
+    """Per-contig haplotagged artifact path; the format follows the input
+    (the reference emits phased CRAM for CRAM input, indelCaller.py:248)."""
+    ext = "cram" if fmt == "CRAM" else "bam"
+    return os.path.join(phase_dir, "%s.phased.%s" % (contig, ext))
 
 
-def write_haplotagged_bam(bam, out_path, contig, start0, end0, tags):
-    """Write the phased-BAM artifact (whatshap haplotag | samtools view
-    equivalent, indelCaller.py:243-251): the window's reads with HP/PS
-    set from tags. The JAX package's native retagger splices the tags
-    into the record bytes; this Python writer (that package's fallback)
-    re-encodes each record, so the BGZF bytes differ while the decoded
-    records are the same."""
-    with BamWriter(out_path, bam.references, bam.lengths) as w:
+def write_haplotagged_bam(bam, out_path, contig, start0, end0, tags,
+                          fasta=None, level=6, threads=0, use_native=True):
+    """Write the phased-BAM/CRAM artifact (whatshap haplotag | samtools
+    view equivalent, indelCaller.py:243-251): the window's reads with
+    HP/PS set from tags.
+
+    A BAM is written by the native single-pass retagger (record bytes
+    pass through, HP/PS spliced, BGZF at deflate `level` with `threads`
+    deflate threads, BAI; the C++ pass releases the GIL); use_native=False
+    takes the Python BamWriter, its oracle, which re-encodes each record
+    (the BGZF bytes differ, the decoded records are the same). A path
+    ending .cram is written by the CramWriter (needs `fasta`)."""
+    if out_path.endswith(".cram"):
+        writer = CramWriter(out_path, bam.references, bam.lengths, fasta)
+    elif use_native:
+        from .io.native import haplotag_native
+
+        return haplotag_native(bam, out_path, contig, start0, end0, tags,
+                               level=level, threads=threads)
+    else:
+        writer = BamWriter(out_path, bam.references, bam.lengths)
+    with writer as w:
         for read in bam.fetch(contig, start0, end0):
             t = tags.get(read.qname)
             if t is not None:

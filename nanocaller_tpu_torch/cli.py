@@ -115,9 +115,7 @@ def build_parser():
     phase.add_argument("--phase_cell_budget", type=int, default=600_000_000,
                        help="exact-wMEC trellis cell budget; bigger "
                             "keeps the whatshap cap-15 selection on "
-                            "larger phase blocks at linear DP cost and "
-                            "memory (the port's trellis stores every "
-                            "column: about 10 bytes a cell)")
+                            "larger phase blocks at linear DP cost")
     phase.add_argument("--enable_whatshap", action="store_true")
     phase.add_argument("--skip_phased_bam", action="store_true",
                        help="do not write the per-contig haplotagged "
@@ -125,12 +123,10 @@ def build_parser():
                             "it; phase→indel handoff is in-memory)")
     phase.add_argument("--phased_bam_compression", type=int, default=1,
                        choices=range(1, 10), metavar="[1-9]",
-                       help="deflate level of the JAX CLI's native "
-                            "haplotagged-BAM writer; accepted for "
-                            "compatibility: the port writes the artifact "
-                            "with its Python BAM writer at that writer's "
-                            "default level, as the JAX CLI's fallback "
-                            "does")
+                       help="deflate level of the haplotagged BAM "
+                            "artifact (1 = fastest, 6 = samtools default "
+                            "size; CRAM artifacts use the CRAM codecs and "
+                            "ignore this)")
     return p
 
 

@@ -56,10 +56,9 @@ class Config:
     enable_whatshap: bool = False
     # exact-wMEC trellis cell budget: the active-read cap of a block is
     # lowered until sites × 2^cap fits (phase/wmec._block_cap). The
-    # default gives whatshap's cap 15 to blocks ≤ 18,310 het sites. The
-    # port's Python trellis stores every cell (~10 bytes each), and
-    # admits 1× the budget where the JAX package's native trellis admits
-    # 16× (ROADMAP §C).
+    # native trellis admits 16× the budget in checkpoint mode, so the
+    # default gives whatshap's cap 15 to blocks ≤ 292,968 het sites (the
+    # JAX package's bound with its library loaded).
     phase_cell_budget: int = 600_000_000
     # framework extras (not in reference)
     # rows per SNP CNN forward (snp_caller.infer_snp_group); no padding
@@ -75,8 +74,9 @@ class Config:
     suppress_progress: bool = False
     verbose: bool = False
     skip_phased_bam: bool = False  # skip the per-contig phased BAM artifact
-    # deflate level of the JAX CLI's native phased-BAM writer; the port's
-    # Python writer keeps its default (accepted for compatibility)
+    # deflate level of the phased-BAM artifact (the native retagger's; a
+    # regenerable intermediate: level 1 writes fastest, 6 is samtools'
+    # default size; a CRAM artifact uses the CRAM codecs)
     phased_bam_compression: int = 1
     resume: bool = False  # reuse completed chunks from a prior run's manifest
     # >0: stall supervision of the JAX CLI (not ported; must stay 0)

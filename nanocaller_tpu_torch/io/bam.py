@@ -5,8 +5,9 @@ region fetch over indexed BAMs, full record decode (flags, CIGAR, SEQ,
 tags incl. HP/PS), and BAM writing (for haplotagged output and test
 fixtures). Binary layout per hts-specs SAMv1 §4; BAI per §5.2.
 
-Pure-Python decode is the port's only path for now: the C++ decoder of
-nanocaller_tpu/io/native and CRAM input are a later slice.
+Pure-Python decode here is the correctness path; the batched hot-path
+decode lives in ``nanocaller_tpu_torch/io/native`` (C++) with identical
+semantics.
 """
 
 from __future__ import annotations
@@ -291,10 +292,9 @@ def open_alignment(path, fasta=None, index_path=None):
     with open(path, "rb") as fh:
         head = fh.read(4)
     if head == b"CRAM":
-        raise NotImplementedError(
-            "%s is a CRAM file: CRAM input is not ported yet (ROADMAP "
-            "queue A, native host library and CRAM slice); convert it to "
-            "BAM or use the nanocaller_tpu CLI" % path)
+        from .cram import CramReader
+
+        return CramReader(path, fasta=fasta, index_path=index_path)
     return BamReader(path, index_path=index_path)
 
 
@@ -305,7 +305,8 @@ class BamReader:
             head = fh.read(4)
         if head == b"CRAM":
             raise ValueError(
-                "%s is a CRAM file: CRAM input is not ported yet" % path)
+                "%s is a CRAM file — open it with io.bam.open_alignment() "
+                "or io.cram.CramReader (needs the reference FASTA)" % path)
         # refuse truncated files up front: a BAM missing the BGZF EOF
         # marker would otherwise silently yield a partial pileup and
         # silently wrong calls (htslib warns here; we hard-fail)

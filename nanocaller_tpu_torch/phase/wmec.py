@@ -24,13 +24,11 @@ module productionizes both:
 The post-hoc `mec.regenotype` pass remains as the differential twin for
 tests; production `phase_contig(distrust=True)` routes here.
 
-A copy of nanocaller_tpu/phase/wmec.py with its native-library branches
-dropped: the numpy/Python loops (that package's oracles of its C++
-selection and trellis) are the port's only path until the native slice.
-One consequence: `_block_cap` keeps the Python trellis's 1× cell budget,
-where the JAX package with its library loaded admits 16×, so the two
-phase differently once a block holds more than
-cell_budget / 2**max_cov sites (18,310 at the defaults).
+A copy of nanocaller_tpu/phase/wmec.py on the port's native library
+(io/native): the selection loops and the trellis run in C++, and
+`_block_cap` admits the checkpointed trellis's 16× cell budget, as the
+JAX package does with its library loaded. The numpy/Python loops stay as
+their bit-identical oracles, taken with use_native=False / native=False.
 """
 
 from __future__ import annotations
@@ -63,7 +61,7 @@ def _read_spans(rids, sidx, n_reads):
     return first, last, cnt
 
 
-def select_reads(rids, sidx, n_reads, max_cov=15):
+def select_reads(rids, sidx, n_reads, max_cov=15, use_native=True):
     """Greedy whatshap-style read selection (coverage reduction).
 
     Caps the number of ACTIVE multi-site reads (span covering the
@@ -74,6 +72,8 @@ def select_reads(rids, sidx, n_reads, max_cov=15):
     likewise phases on multi-site reads only).
 
     Returns a bool mask over the observations (True = read selected).
+    The greedy loop runs in C++ (io/native ncio_select_greedy); the
+    Python loop below, taken with use_native=False, is its oracle.
     """
     K = len(rids)
     if K == 0:
@@ -87,6 +87,11 @@ def select_reads(rids, sidx, n_reads, max_cov=15):
     span = last[multi] - first[multi]
     order = multi[np.lexsort((multi, -span, -cnt[multi]))]
     S = int(sidx.max()) + 1
+    if use_native:
+        from ..io.native import select_greedy_native
+
+        return select_greedy_native(order, first, last, S, max_cov,
+                                    n_reads)[rids]
     active = np.zeros(S, np.int32)
     taken = np.zeros(n_reads, bool)
     for r in order:
@@ -107,7 +112,8 @@ def select_reads_production(rids, sidx, n_reads, max_cov=15):
     return select_reads_connectivity(rids, sidx, n_reads, max_cov=max_cov)
 
 
-def select_reads_connectivity(rids, sidx, n_reads, max_cov=15):
+def select_reads_connectivity(rids, sidx, n_reads, max_cov=15,
+                              use_native=True):
     """whatshap-style CONNECTIVITY-FIRST read selection.
 
     whatshap's read selection (readselection.py; run by NanoCaller at
@@ -126,7 +132,10 @@ def select_reads_connectivity(rids, sidx, n_reads, max_cov=15):
         (#obs, span, -rid); pick the best-scoring read that keeps every
         column of its span under max_cov (lazy rescoring heap).
 
-    Returns a bool mask over the observations, like select_reads.
+    Returns a bool mask over the observations, like select_reads. The
+    loop runs in C++ (io/native ncio_select_connectivity, strict total
+    key order); the heap below, taken with use_native=False, is its
+    bit-identical oracle.
     """
     import heapq
 
@@ -140,6 +149,11 @@ def select_reads_connectivity(rids, sidx, n_reads, max_cov=15):
     if not len(multi):
         return np.zeros(K, bool)
     S = int(sidx.max()) + 1
+    if use_native:
+        from ..io.native import select_connectivity_native
+
+        return select_connectivity_native(first, last, cnt, multi, S,
+                                          max_cov, n_reads)[rids]
     active = np.zeros(S, np.int32)
     # link[j] = selected reads spanning the (j, j+1) adjacency
     link = np.zeros(max(S - 1, 1), np.int32)
@@ -199,11 +213,15 @@ def components(rids, sidx, n_sites):
 def _block_cap(n_block_sites, max_cov, cell_budget):
     """Largest active-read cap whose trellis fits the cell budget.
 
-    The Python DP stores the whole trellis, so a block gets at most
-    cell_budget cells (the JAX package's native trellis, in checkpoint
-    mode, admits 16× that; the native slice brings it here)."""
+    The native trellis (io/native ncio_wmec) runs blocks up to 16× the
+    cell budget in CHECKPOINT mode — frontier snapshots plus per-block
+    recompute bound the parent/gt store at the budget while the compute
+    cost doubles — so cap 15 survives whole-contig block sizes (~290k
+    sites at the default budget). This is the JAX package's bound with
+    its library loaded."""
+    scale = 16
     cap = max_cov
-    while cap > 4 and n_block_sites * (1 << cap) > cell_budget:
+    while cap > 4 and n_block_sites * (1 << cap) > scale * cell_budget:
         cap -= 1
     return cap
 
@@ -212,8 +230,8 @@ def exact_refine(rids, sidx, alleles, n_sites, comp, h,
                  max_cov=15, cell_budget=600_000_000, n_threads=None):
     """Per-block exact wMEC on coverage-selected reads.
 
-    For every phase block, runs the exact DP (het-pinned wmec_exact_gt)
-    over the selected observations
+    For every phase block, runs the exact DP (het-pinned wmec_exact_gt,
+    the native trellis) over the selected observations
     and adopts the exact haplotype iff it
     strictly lowers the block's MEC cost over ALL observations — the
     production result is exact wherever the DP wins and never worse than
@@ -257,16 +275,19 @@ def exact_refine(rids, sidx, alleles, n_sites, comp, h,
     def solve(job):
         mem, nb, in_c, cap, sel, local = job
         try:
-            # het-pinned joint DP (huge gq) = plain exact wMEC
+            # het-pinned joint DP (huge gq) = plain exact wMEC on the
+            # native trellis, whose budget must admit what _block_cap
+            # admitted (sites × 2^cap cells)
             _c_sel, h_ex, _a2, _part = wmec_exact_gt(
                 rids[sel], local[sidx[sel]], alleles[sel], nb,
-                np.ones(nb, np.int8), 1e30, max_active=cap)
+                np.ones(nb, np.int8), 1e30, max_active=cap,
+                cell_budget=max(cell_budget, 64_000_000))
         except ValueError:
             return None  # selection failed to bound the active width
         return h_ex
 
-    # blocks are independent; numpy releases the GIL inside the large
-    # column ops, so thread-parallel block solves use spare cores
+    # blocks are independent; the native trellis releases the GIL, so
+    # thread-parallel block solves use spare cores
     if len(jobs) > 1:
         from concurrent.futures import ThreadPoolExecutor
 
@@ -294,7 +315,8 @@ def exact_refine(rids, sidx, alleles, n_sites, comp, h,
     return h
 
 
-def wmec_exact_gt(rids, sidx, alleles, n_sites, g_in, gq, max_active=18):
+def wmec_exact_gt(rids, sidx, alleles, n_sites, g_in, gq, max_active=18,
+                  native=True, cell_budget=64_000_000):
     """Exact joint wMEC + genotype re-typing DP (PedMEC-G analog of
     whatshap --distrust-genotypes --include-homozygous).
 
@@ -333,6 +355,30 @@ def wmec_exact_gt(rids, sidx, alleles, n_sites, g_in, gq, max_active=18):
     last = np.full(R, -1, np.int64)
     np.minimum.at(first, rr, ss)
     np.maximum.at(last, rr, ss)
+
+    if native:
+        # C++ trellis (io/native ncio_wmec): identical state-bit layout,
+        # tie rules and double arithmetic — bit-for-bit the Python DP
+        # below (native=False), which stores every column
+        from ..io.native import wmec_native
+
+        order_o = np.argsort(ss, kind="stable")
+        ss_s = ss[order_o]
+        col_start = np.searchsorted(ss_s, np.arange(n_sites + 1))
+        res = wmec_native(
+            first.astype(np.int32), last.astype(np.int32),
+            col_start.astype(np.int64), rr[order_o].astype(np.int32),
+            aa[order_o].astype(np.int8), np.asarray(g_in, np.int8), gq,
+            max_active, cell_budget)
+        if res is None:
+            raise ValueError(
+                "wMEC instance infeasible for the native trellis: active "
+                "coverage over max_active=%d (at most 24), or more than "
+                "16 x %d trellis cells; select reads first"
+                % (max_active, cell_budget))
+        cost, a1n, a2n, partn = res
+        part = {int(multi[r]): int(partn[r]) for r in range(R)}
+        return cost, a1n, a2n, part
 
     obs_at = [[] for _ in range(n_sites)]
     for r, s, a in zip(rr, ss, aa):
@@ -491,7 +537,8 @@ def phase_distrust(rw, het_pos, het_ref, het_alt, hom_pos, hom_ref, hom_alt,
         local[mem] = np.arange(nb)
         _cost, b1, b2, _part = wmec_exact_gt(
             rids[sel], local[sidx[sel]], alleles[sel], nb, g_in[mem],
-            gq_units, max_active=cap)
+            gq_units, max_active=cap,
+            cell_budget=max(cell_budget, 64_000_000))
         a1[mem], a2[mem] = b1, b2
 
     # block PS ids (position of the block's first variant, whatshap

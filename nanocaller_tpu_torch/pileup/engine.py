@@ -14,9 +14,9 @@ convention ("A+3TTT" appears on the column before the inserted bases).
 From these, per-column counts and per-site read codes are pure
 vectorized reductions (column_counts, site_read_codes, SiteCodes).
 
-The port keeps only the numpy decode of nanocaller_tpu/pileup/engine.py
-(the JAX package's oracle for its C++ decoder, pinned to it by that
-package's tests/test_native.py); the native library is a later slice.
+A copy of nanocaller_tpu/pileup/engine.py. The decode runs the port's C++
+library (io/native) for BAM and CRAM; the numpy decode below is its
+oracle, reached only with decode_reads(use_native=False).
 """
 
 from __future__ import annotations
@@ -68,6 +68,12 @@ class ReadWindow:
     ins_len: np.ndarray = None
     # query sequences kept for realignment window extraction (indel path)
     seqs: list = field(default_factory=list)
+    # lazy alternative to seqs (deferred native decode): callable
+    # (rids int32[], qstarts int32[], win) -> list[str], each string
+    # == seqs[rid][max(0, q):q+win]; consumers prefer it when set
+    seq_provider: object = None
+    # (start, end, counts int32[W,6]) — precomputed by the C++ decoder
+    counts_cache: tuple = None
 
     @property
     def n_reads(self):
@@ -75,7 +81,7 @@ class ReadWindow:
 
 
 def decode_reads(bam, contig, start, end, flag_exclude=None, keep_seq=False,
-                 sites=None):
+                 sites=None, use_native=True):
     """Decode reads overlapping [start, end) (0-based) into a ReadWindow.
 
     flag_exclude defaults to the reference's pileup filter
@@ -86,9 +92,23 @@ def decode_reads(bam, contig, start, end, flag_exclude=None, keep_seq=False,
     the aligned events at those positions and the deletions spanning one
     of them (what phasing reads), as the JAX package's site-filtered
     decode does.
+
+    Runs the C++ decoder of io/native (BAM, or CRAM through the reader's
+    decode_window); use_native=False runs the numpy decode below, its
+    bit-identical oracle.
     """
     if flag_exclude is None:
         flag_exclude = DEFAULT_FLAG_FILTER
+    if use_native:
+        if bam.format == "CRAM":
+            raw = bam.decode_window(contig, start, end, flag_exclude,
+                                    keep_seq, sites)
+        else:
+            from ..io.native import decode_window_native
+
+            raw = decode_window_native(bam, contig, start, end, flag_exclude,
+                                       keep_seq, sites=sites)
+        return _window_from_native(raw, contig, start, end)
     if sites is not None:
         sites = np.asarray(sites, dtype=np.int64)
     qnames, flags, strands, rstarts, rends, hps, pss, seqs = [], [], [], [], [], [], [], []
@@ -168,7 +188,7 @@ def decode_reads(bam, contig, start, end, flag_exclude=None, keep_seq=False,
         seqs=seqs,
     )
     if sites is not None:
-        # full decode, then filter the aligned events to the sites
+        # oracle path: full decode then filter aligned events to sites
         idx = np.searchsorted(sites, rw_out.ev_pos)
         hit = idx < len(sites)
         hit[hit] = sites[idx[hit]] == rw_out.ev_pos[hit]
@@ -188,13 +208,250 @@ def decode_reads(bam, contig, start, end, flag_exclude=None, keep_seq=False,
 
 
 def decode_reads_parallel(bam, contig, start, end, sites=None, keep_seq=False,
-                          flag_exclude=None):
-    """The JAX package's threaded window decode, which splits a long
-    window across threads of its native decoder. Without that library
-    (the native slice brings it) it is one decode_reads call, whose
-    output the split must equal."""
-    return decode_reads(bam, contig, start, end, flag_exclude=flag_exclude,
-                        keep_seq=keep_seq, sites=sites)
+                          flag_exclude=None, min_span=10_000_000, n_parts=2):
+    """Window decode split across threads; output identical to
+    decode_reads.
+
+    The whole-contig site-filtered decode of the phasing stage is one
+    ~O(contig) native call on one core; splitting the window lets the C
+    decoder (which releases the GIL) use spare cores. Reads overlapping a
+    boundary are decoded by both parts; the right part's duplicates are a
+    position-sorted PREFIX of its read list (BAM is coordinate-sorted)
+    and are dropped before the merge, so the merged read order and id
+    space equal the single-window decode's. Windows shorter than
+    min_span and CRAM inputs take one decode."""
+    if end - start < min_span or n_parts < 2 or bam.format != "BAM":
+        return decode_reads(bam, contig, start, end,
+                            flag_exclude=flag_exclude, keep_seq=keep_seq,
+                            sites=sites)
+    from concurrent.futures import ThreadPoolExecutor
+
+    bounds = [start + (end - start) * i // n_parts for i in range(n_parts + 1)]
+    with ThreadPoolExecutor(n_parts) as ex:
+        parts = list(ex.map(
+            lambda b: decode_reads(bam, contig, b[0], b[1],
+                                   flag_exclude=flag_exclude,
+                                   keep_seq=keep_seq, sites=sites),
+            zip(bounds[:-1], bounds[1:])))
+
+    # drop each non-first part's boundary-duplicate read prefix, remap
+    # ids, concatenate
+    qnames, seqs = [], []
+    flags, strand, rstart, rend, hp, ps = [], [], [], [], [], []
+    ev = {k: [] for k in ("ev_rid", "ev_pos", "ev_code", "ev_qpos",
+                          "del_rid", "del_start", "del_len",
+                          "ins_rid", "ins_pos", "ins_len")}
+    offset = 0
+    for i, p in enumerate(parts):
+        ndrop = int(np.searchsorted(p.read_start, bounds[i])) if i else 0
+        shift = offset - ndrop
+        qnames.extend(p.qnames[ndrop:])
+        if p.seqs:
+            seqs.extend(p.seqs[ndrop:])
+        flags.append(p.flags[ndrop:])
+        strand.append(p.strand[ndrop:])
+        rstart.append(p.read_start[ndrop:])
+        rend.append(p.read_end[ndrop:])
+        hp.append(p.hp[ndrop:])
+        ps.append(p.ps[ndrop:])
+        for rid_k, val_ks in (("ev_rid", ("ev_pos", "ev_code", "ev_qpos")),
+                              ("del_rid", ("del_start", "del_len")),
+                              ("ins_rid", ("ins_pos", "ins_len"))):
+            rids = getattr(p, rid_k)
+            m = rids >= ndrop
+            ev[rid_k].append((rids[m] + shift).astype(np.int32))
+            for k in val_ks:
+                ev[k].append(getattr(p, k)[m])
+        offset += p.n_reads - ndrop
+
+    cat = lambda parts_l, dt: (np.concatenate(parts_l).astype(dt, copy=False)
+                               if parts_l else np.zeros(0, dt))
+    return ReadWindow(
+        contig=contig, start=start, end=end, qnames=qnames,
+        flags=cat(flags, np.int32), strand=cat(strand, np.int8),
+        read_start=cat(rstart, np.int64), read_end=cat(rend, np.int64),
+        hp=cat(hp, np.int8), ps=cat(ps, np.int64),
+        ev_rid=cat(ev["ev_rid"], np.int32), ev_pos=cat(ev["ev_pos"], np.int32),
+        ev_code=cat(ev["ev_code"], np.int8),
+        ev_qpos=cat(ev["ev_qpos"], np.int32),
+        del_rid=cat(ev["del_rid"], np.int32),
+        del_start=cat(ev["del_start"], np.int32),
+        del_len=cat(ev["del_len"], np.int32),
+        ins_rid=cat(ev["ins_rid"], np.int32),
+        ins_pos=cat(ev["ins_pos"], np.int32),
+        ins_len=cat(ev["ins_len"], np.int32),
+        seqs=seqs)
+
+
+class DeferredReadWindow:
+    """Two-phase decode handle: counts now, site-filtered events later.
+
+    Used by the SNP path (pileup/snp_features.py): the candidate scan only
+    needs per-column counts; per-read codes are needed only at the
+    (much sparser) candidate ∪ neighbor site set, which isn't known until
+    after the scan. Backed by the native decoder's deferred mode.
+    """
+
+    def __init__(self, native_dd, contig, start, end):
+        self._dd = native_dd
+        self.contig, self.start, self.end = contig, start, end
+
+    def counts(self, start, end):
+        """Per-column counts over [start, end) — column_counts contract."""
+        return self._dd.counts[start - self.start : end - self.start]
+
+    def finish(self, sites) -> "ReadWindow":
+        raw = self._dd.finish(sites)
+        return _window_from_native(raw, self.contig, self.start, self.end)
+
+    def close(self):
+        self._dd.close()
+
+
+class CramDeferredWindow:
+    """CRAM flavor of DeferredReadWindow: phase 1 is a counts-only
+    native slice decode (no per-base events); phase 2 re-decodes the
+    window with the site filter (the rANS codecs and feature walk run
+    twice, but both passes skip the O(bases) event materialization)."""
+
+    def __init__(self, bam, counts_arr, contig, start, end, flag_exclude):
+        self._bam = bam
+        self._counts = counts_arr
+        self._flagx = flag_exclude
+        self.contig, self.start, self.end = contig, start, end
+
+    def counts(self, start, end):
+        return self._counts[start - self.start : end - self.start]
+
+    def finish(self, sites) -> "ReadWindow":
+        raw = self._bam.decode_window(self.contig, self.start, self.end,
+                                      self._flagx, False,
+                                      np.asarray(sites, dtype=np.int64))
+        return _window_from_native(raw, self.contig, self.start, self.end)
+
+    def close(self):
+        pass
+
+
+def deferred_decode(bam, contig, start, end, flag_exclude=None):
+    """Start a deferred (counts-first) native decode of a BAM (record
+    bytes stashed in the handle) or a CRAM (a counts-only first pass)."""
+    if flag_exclude is None:
+        flag_exclude = DEFAULT_FLAG_FILTER
+    if bam.format == "CRAM":
+        raw = bam.decode_window(contig, start, end, flag_exclude, False,
+                                None, counts_only=True)
+        counts = raw.get("counts", np.zeros((0, N_COUNT_CH), np.int32))
+        _check_counts(counts, start, end)
+        return CramDeferredWindow(bam, counts, contig, start, end,
+                                  flag_exclude)
+    from ..io.native import decode_window_deferred
+
+    dd = decode_window_deferred(bam, contig, start, end, flag_exclude)
+    try:
+        _check_counts(dd.counts, start, end)
+    except ValueError:
+        dd.close()
+        raise
+    return DeferredReadWindow(dd, contig, start, end)
+
+
+def _check_counts(counts, start, end):
+    # the native decoder keeps per-column counts for windows under 2**31
+    # columns
+    if counts.shape[0] != end - start:
+        raise ValueError("native counts cover %d columns of the %d-column "
+                         "window" % (counts.shape[0], end - start))
+
+
+class IndelDeferredWindow:
+    """Two-phase decode handle for the indel path.
+
+    Phase 1 (`window`): a ReadWindow with read metadata, sequences and
+    ins/del events but NO aligned-base events — everything the candidate
+    scan (pileup/indel_features._compute_triggers) reads. Phase 2
+    (`finish_events`): fill ev_* with query-position-or-next
+    pseudo-events at exactly the queried columns, one per covering read
+    per column — the only aligned-event lookups pass 2 performs
+    (pysam query_position_or_next semantics,
+    generate_indel_pileups.py:331). Skipping the full M-event
+    materialization is the indel-path analog of the SNP path's
+    counts-first decode."""
+
+    def __init__(self, dd, rw):
+        self._dd = dd
+        self.window = rw
+
+    def finish_events(self, cols):
+        """cols: iterable of 0-based columns; fills window.ev_* in place.
+
+        keep=True retains the record store: sequence windows are
+        expanded lazily via window.seq_provider (emit_qwin) instead of
+        materializing every read's full sequence in phase 1 — the
+        caller must close() when feature extraction is done."""
+        cols_arr = np.asarray(sorted(set(int(c) for c in cols)), np.int64)
+        ev_rid, ev_pos, ev_code, ev_qpos = self._dd.emit_qpos(cols_arr,
+                                                              keep=True)
+        w = self.window
+        w.ev_rid, w.ev_pos, w.ev_code, w.ev_qpos = (
+            ev_rid, ev_pos, ev_code, ev_qpos)
+        # record which columns have events: a query at any other column
+        # would silently fall through to an unrelated read's qpos; the
+        # _ColumnView consumers check membership so a coverage gap in
+        # _event_columns_needed fails loudly instead of corrupting
+        # features
+        w.emitted_cols = frozenset(cols_arr.tolist())
+        return w
+
+    def close(self):
+        self._dd.close()
+
+
+def indel_deferred_decode(bam, contig, start, end, flag_exclude=None):
+    """Start a two-phase native indel decode of a BAM; None for a CRAM,
+    which the caller decodes in one native pass (decode_reads)."""
+    if flag_exclude is None:
+        flag_exclude = DEFAULT_FLAG_FILTER
+    if bam.format != "BAM":
+        return None
+    from ..io.native import decode_window_deferred
+
+    dd = decode_window_deferred(bam, contig, start, end, flag_exclude,
+                                keep_seq=False, want_counts=False)
+    try:
+        raw = dd.window_raw()
+    except ValueError:
+        dd.close()
+        raise
+    w = _window_from_native(raw, contig, start, end)
+    # sequences stay packed in the C++ record store; candidate windows
+    # are expanded on demand
+    w.seq_provider = dd.emit_qwin
+    return IndelDeferredWindow(dd, w)
+
+
+def _window_from_native(raw, contig, start, end):
+    """Assemble a ReadWindow from the native decoder's flat arrays."""
+    qn = raw["qnames_raw"].tobytes()
+    off = raw["qname_off"]
+    qnames = [qn[off[i]:off[i + 1]].decode() for i in range(len(off) - 1)]
+    seqs = []
+    if raw["seq_off"][-1] > 0:
+        sq = raw["seqs_raw"].tobytes()
+        soff = raw["seq_off"]
+        seqs = [sq[soff[i]:soff[i + 1]].decode() for i in range(len(soff) - 1)]
+    return ReadWindow(
+        contig=contig, start=start, end=end, qnames=qnames,
+        flags=raw["flags"], strand=raw["strand"],
+        read_start=raw["read_start"], read_end=raw["read_end"],
+        hp=raw["hp"], ps=raw["ps"],
+        ev_rid=raw["ev_rid"], ev_pos=raw["ev_pos"], ev_code=raw["ev_code"],
+        ev_qpos=raw["ev_qpos"],
+        del_rid=raw["del_rid"], del_start=raw["del_start"],
+        del_len=raw["del_len"],
+        ins_rid=raw["ins_rid"], ins_pos=raw["ins_pos"], ins_len=raw["ins_len"],
+        seqs=seqs,
+        counts_cache=(start, end, raw["counts"]) if "counts" in raw else None)
 
 
 def column_counts(rw: ReadWindow, start, end):
@@ -204,6 +461,10 @@ def column_counts(rw: ReadWindow, start, end):
     ``n_aligned`` (pysam get_num_aligned semantics: non-deletion entries)
     is counts[:, :5].sum(-1).
     """
+    if rw.counts_cache is not None:
+        cs, ce, cached = rw.counts_cache
+        if cs <= start and end <= ce:
+            return cached[start - cs : end - cs]
     width = end - start
     m = (rw.ev_pos >= start) & (rw.ev_pos < end)
     # bincount over a fused (pos, code) index — far faster than np.add.at

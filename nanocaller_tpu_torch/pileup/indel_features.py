@@ -33,7 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..align.nw import nw_align
-from .engine import ReadWindow, decode_reads
+from .engine import ReadWindow, decode_reads, indel_deferred_decode
 
 REF_N_LUT = np.full(256, 0, dtype=np.int8)  # 1 = valid AGTC uppercase
 for _b in "AGTC":
@@ -110,7 +110,9 @@ def _compute_triggers(rw, scan_cols, *, win_size, small_win_size, mincov,
                       ins_t, del_t, impute_indel_phase=False, haploid=False):
     """Vectorized trigger computation of pass 1: per-column boolean
     arrays (big_trig, small_trig, impute_trig). Reads only read
-    intervals, HP tags and ins/del events — never aligned-base events."""
+    intervals, HP tags and ins/del events — never aligned-base events,
+    so it can run on a phase-1 deferred window
+    (engine.IndelDeferredWindow)."""
     n = len(scan_cols)
     if haploid:
         hap1 = np.ones(rw.n_reads, dtype=bool)
@@ -198,6 +200,27 @@ def _select_candidates(rw, scan_cols, triggers, win_size, mincov,
                 extra[max(0, v0 - 10)] = split
                 prev = v0 + 10
     return variants, extra
+
+
+def _event_columns_needed(scan_cols, triggers, win_size):
+    """Superset of the columns whose aligned-base events pass 2 may ever
+    query: the candidate window anchor per trigger (big → v0−win_size,
+    small/impute → v0−10) plus the trigger column itself for impute
+    signature grouping. The selection loop only suppresses candidates
+    (prev chain), never adds columns, so this is exact as a superset and
+    computable before any aligned events exist."""
+    big_trig, small_trig, impute_trig = triggers
+    cols = set()
+    for i in np.flatnonzero(big_trig | small_trig | impute_trig):
+        v0 = int(scan_cols[i])
+        if big_trig[i]:
+            cols.add(max(0, v0 - win_size))
+        elif small_trig[i]:
+            cols.add(max(0, v0 - 10))
+        else:
+            cols.add(v0)
+            cols.add(max(0, v0 - 10))
+    return cols
 
 
 def _count_at(scan_cols, anchors):
@@ -323,6 +346,10 @@ class _ColumnView:
 
     def __init__(self, rw: ReadWindow):
         self.rw = rw
+        # when the window came from a deferred emit_qpos decode, only the
+        # emitted columns carry events — any other column would resolve to
+        # a wrong qpos silently, so guard every lookup
+        self._emitted = getattr(rw, "emitted_cols", None)
         # events are emitted read-by-read in CIGAR order → ev_rid is
         # non-decreasing and ev_pos ascending within a read
         # dtype must match ev_rid's: a mixed-dtype searchsorted silently
@@ -337,10 +364,17 @@ class _ColumnView:
         self._key = ((rw.ev_rid.astype(np.uint64) << np.uint64(32))
                      | rw.ev_pos.astype(np.uint64))
 
+    def _check_emitted(self, col):
+        if self._emitted is not None and int(col) not in self._emitted:
+            raise AssertionError(
+                "deferred indel decode: column %d queried but not emitted "
+                "(gap in _event_columns_needed)" % int(col))
+
     def _lookup(self, col):
         """(rids, qpos, k, seg_hi) for reads covering col; k is the
         global index of the read's first event at column >= col (== the
         scalar lo + searchsorted(ev_pos[lo:hi], col) by key order)."""
+        self._check_emitted(col)
         rw = self.rw
         covering = np.flatnonzero((rw.read_start <= col) & (col < rw.read_end))
         if len(covering) == 0:
@@ -402,8 +436,11 @@ def extract_candidate_windows(rw, cview, v0, window_after, names0, names1):
     d = {"h0": {}, "h1": {}, "tot": {}}
     first_h0_rid = None
     rids, qposs, _, _ = cview._lookup(v0)
-    wins = [rw.seqs[rid][max(0, q): q + window_after]
-            for rid, q in zip(rids.tolist(), qposs.tolist())]
+    if rw.seq_provider is not None:
+        wins = rw.seq_provider(rids, qposs, window_after)
+    else:
+        wins = [rw.seqs[rid][max(0, q): q + window_after]
+                for rid, q in zip(rids.tolist(), qposs.tolist())]
     for rid, qpos, dt in zip(rids.tolist(), qposs.tolist(), wins):
         name = rw.qnames[rid]
         d["tot"][name] = dt
@@ -425,7 +462,12 @@ def get_indel_candidates(bam, fasta, chunk, *, seq_type="ont", mincov=4,
 
     Diploid returns IndelBatch; haploid returns HaploidIndelBatch.
 
-    When rw is None the window is decoded with engine.decode_reads.
+    When rw is None and the input is a BAM, the decode runs in two native
+    phases (engine.indel_deferred_decode): the scan needs no aligned-base
+    events, so they are emitted only at the candidate anchor columns
+    afterwards, and the reads' sequence windows are cut from the C++
+    record store on demand. A CRAM is decoded in one native pass
+    (engine.decode_reads).
     tags: optional {qname: (hp, ps)} haplotags injected right after the
     decode (the phase→indel handoff in memory, in place of a phased-BAM
     round trip); a read absent from it keeps the BAM's own HP/PS.
@@ -439,8 +481,13 @@ def get_indel_candidates(bam, fasta, chunk, *, seq_type="ont", mincov=4,
     end0 = chunk["end"]
     window_after = 260 if seq_type == "pacbio" else 160
     scan_lo = max(0, start0 - 10 - win_size)
+    deferred = None
     if rw is None:
-        rw = decode_reads(bam, contig, scan_lo, end0, keep_seq=True)
+        deferred = indel_deferred_decode(bam, contig, scan_lo, end0)
+        if deferred is not None:
+            rw = deferred.window
+        else:
+            rw = decode_reads(bam, contig, scan_lo, end0, keep_seq=True)
     if tags:
         for rid_, qname in enumerate(rw.qnames):
             t = tags.get(qname)
@@ -460,15 +507,23 @@ def get_indel_candidates(bam, fasta, chunk, *, seq_type="ont", mincov=4,
         impute_indel_phase=impute_indel_phase and not haploid,
         haploid=haploid) if len(scan_cols) else (
             np.zeros(0, bool), np.zeros(0, bool), np.zeros(0, bool))
+    if deferred is not None:
+        deferred.finish_events(
+            _event_columns_needed(scan_cols, triggers, win_size))
     cview = _ColumnView(rw)
     variants, extra = _select_candidates(
         rw, scan_cols, triggers, win_size, mincov,
         sig_provider=None if haploid else cview.signature_groups)
 
-    return _tensorize_candidates(
-        rw, cview, variants, extra, fasta, contig, chrom_len, scan_lo,
-        window_after=window_after, win_size=win_size, mincov=mincov,
-        maxcov=maxcov, haploid=haploid, device=device)
+    try:
+        return _tensorize_candidates(
+            rw, cview, variants, extra, fasta, contig, chrom_len, scan_lo,
+            window_after=window_after, win_size=win_size, mincov=mincov,
+            maxcov=maxcov, haploid=haploid, device=device)
+    finally:
+        # frees the C++ record store backing rw.seq_provider
+        if deferred is not None:
+            deferred.close()
 
 
 def _tensorize_candidates(rw, cview, variants, extra, fasta, contig,

@@ -18,9 +18,13 @@ Semantics parity notes (all cites into the reference NanoCaller):
   :216, i.e. is nondeterministic across runs; a position-keyed
   deterministic RNG is used instead)
 
-The port keeps the numpy decode only (no deferred native decode) and no
-per-member payload fallback: a group over the payload caps raises
-NotImplementedError (ROADMAP A2, the SnpChunkFeatures path).
+The group window is decoded in two native phases (engine.deferred_decode:
+per-column counts for the scan, then per-read codes at the candidate ∪
+neighbor sites only). A group over the payload caps, or one whose
+neighbor lists fail the cross-check, is sent as one single-member group
+per member, as the JAX package sends it as per-member payloads; a member
+still over the caps on its own raises NotImplementedError (ROADMAP B6,
+the per-chunk kernels).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .engine import ReadWindow, SiteCodes, column_counts, decode_reads
+from .engine import ReadWindow, SiteCodes, deferred_decode
 
 NBR_SIZE = 20
 WIDTH = 2 * NBR_SIZE + 1  # 41
@@ -370,19 +374,21 @@ def _scan_group(
 
     Each member's scan runs over exactly its own ±SNP_HALO window with
     its own read-id space (_member_window), so every per-member array
-    equals a standalone scan of that chunk."""
+    equals a standalone scan of that chunk. The window is decoded in two
+    native phases: counts for the scan, then events at the members'
+    candidate and neighbor sites."""
     contig = members[0]["chrom"]
     g_lo = max(0, min(m["start"] for m in members) - 1 - SNP_HALO)
     g_hi = max(m["end"] for m in members) + SNP_HALO
 
+    dd = deferred_decode(bam, contig, g_lo, g_hi)
     ref_str = fasta.fetch(contig, g_lo, g_hi)
     g_hi = min(g_hi, g_lo + len(ref_str))
     ref_codes_g = REF_CODE_LUT[np.frombuffer(ref_str.encode(), dtype=np.uint8)]
-    rw_g = decode_reads(bam, contig, g_lo, g_hi)
-    counts_g = column_counts(rw_g, g_lo, g_hi)
+    counts_g = dd.counts(g_lo, g_hi)
 
     p1s = []
-    any_cands = False
+    site_parts = []
     for m in members:
         m_lo = max(0, m["start"] - 1 - SNP_HALO)
         m_hi = min(m["end"] + SNP_HALO, g_hi)
@@ -395,11 +401,15 @@ def _scan_group(
             threshold=threshold, ploidy=m.get("ploidy", "diploid"),
             exclude=exclude)
         p1s.append((m_lo, m_hi, ref_m, p1))
-        any_cands |= p1 is not None
+        if p1 is not None:
+            site_parts.append(p1.nbr_pos)
+            site_parts.append(p1.cand_pos)
 
     windows = [(m_lo, m_hi) for m_lo, m_hi, _, _ in p1s]
-    if not any_cands:
+    if not site_parts:
+        dd.close()
         return [None] * len(members), None, ref_codes_g, g_lo, windows
+    rw_g = dd.finish(np.unique(np.concatenate(site_parts)))
 
     out = []
     for m_lo, m_hi, ref_m, p1 in p1s:
@@ -575,14 +585,14 @@ class SnpGroupFeatures:
         return sum(len(m) for _, m in self.members if m is not None)
 
 
-# group-payload caps of the JAX package, kept so that both packages take
-# the group path on the same groups; the port raises beyond them (the
-# per-member fallback is ROADMAP A2's remainder)
+# group-payload caps of the JAX package (its (batch × reads) device
+# mask), kept so that both packages send the same groups whole: a group
+# beyond them goes member by member
 _GROUP_MAX_READS = 1 << 15
 _GROUP_MAX_SITES = 1 << 19
 
 
-def get_snp_group_payload(
+def get_snp_group_payloads(
     bam,
     fasta,
     members,
@@ -595,32 +605,54 @@ def get_snp_group_payload(
     threshold=(0.4, 0.6),
     exclude=None,
 ):
-    """Scan a group off one decoded window and build the GROUP-level
-    payload. A group without candidates gives empty members. Where the
-    JAX package falls back on per-member payloads (a group over the caps,
-    or a failed neighbor-list cross-check) the port raises
-    NotImplementedError."""
+    """Scan a group off one decoded window and build its payloads: a list
+    of SnpGroupFeatures whose members, in order, are `members` as
+    (member dict, SnpGroupMember or None).
+
+    One payload for the whole group, or — where it is over the payload
+    caps or its neighbor lists fail the cross-check — one single-member
+    payload per member, built from that member's own scan (its reads,
+    id space and sites are a standalone scan's), which the caller sends
+    through the same group path. A group without candidates gives one
+    payload of empty members. A member over the caps on its own raises
+    NotImplementedError: the per-chunk kernels (ROADMAP B6) are not
+    ported."""
     scans, rw_g, ref_codes_g, g_lo, windows = _scan_group(
         bam, fasta, members, seq_type=seq_type, mincov=mincov,
         maxcov=maxcov, min_allele_freq=min_allele_freq,
         min_nbr_sites=min_nbr_sites, threshold=threshold, exclude=exclude)
     if rw_g is None:
-        return _empty_group(members, seq_type, maxcov)
+        return [_empty_group(members, seq_type, maxcov)]
     gf = _assemble_group_payload(members, scans, rw_g, ref_codes_g, g_lo,
                                  windows, maxcov, seq_type)
-    if gf is None:
-        raise NotImplementedError(
-            "SNP group over the payload caps (%d reads, %d sites) or with a "
-            "neighbor-list mismatch: the per-member SnpChunkFeatures "
-            "fallback is not ported yet (ROADMAP A2, kernels B6)"
-            % (_GROUP_MAX_READS, _GROUP_MAX_SITES))
-    return gf
+    if gf is not None:
+        return [gf]
+    out = []
+    for m, scan, (m_lo, m_hi) in zip(members, scans, windows):
+        if scan is None:
+            out.append(_empty_group([m], seq_type, maxcov))
+            continue
+        one = _assemble_group_payload(
+            [m], [scan], scan.rw, ref_codes_g[m_lo - g_lo: m_hi - g_lo],
+            m_lo, [(m_lo, m_hi)], maxcov, seq_type)
+        if one is None:
+            raise NotImplementedError(
+                "SNP chunk %s:%d-%d is over the payload caps on its own "
+                "(%d decoded reads, %d sites; caps %d and %d): its "
+                "per-chunk path needs the SNP per-chunk kernels, not "
+                "ported yet (ROADMAP B6)"
+                % (m["chrom"], m["start"], m["end"], scan.rw.n_reads,
+                   len(scan.union_sites), _GROUP_MAX_READS,
+                   _GROUP_MAX_SITES))
+        out.append(one)
+    return out
 
 
 def _assemble_group_payload(members, scans, rw_g, ref_codes_g, g_lo,
                             windows, maxcov, seq_type):
     """Build SnpGroupFeatures from a completed group scan; None when a
-    feasibility cap or a cross-check fails (the caller raises)."""
+    feasibility cap or a cross-check fails (the caller then goes member
+    by member)."""
     contig = members[0]["chrom"]
     live = [s for s in scans if s is not None]
     union_g = np.unique(np.concatenate([s.union_sites for s in live]))

@@ -9,7 +9,8 @@ byte, and the two-file output contract ({prefix}.unfiltered.snps.vcf.gz
 + PASS-only {prefix}.snps.vcf.gz).
 
 Per decode group the host builds one observation payload
-(pileup/snp_features.py); on the state's device, kernel K3
+(pileup/snp_features.py; one per member where the group is over the
+payload caps, each then a group of one); on the state's device, kernel K3
 (pileup/snp_pileup.py) selects each candidate's 41 neighbour columns and
 builds its pileup from the payload, one launch a cohort, and the SNP CNN
 (models/snp.py, torch/cuDNN) runs on it.
@@ -28,7 +29,7 @@ from .io.vcf import VcfWriter, standard_snp_header, view_filter
 from .models import (HaploidSNPModel, SNPModel, load_model,
                      torch_state_dict_from_params)
 from .models.registry import HAPLOID_TRAIN_COVERAGE
-from .pileup.snp_features import get_snp_group_payload
+from .pileup.snp_features import get_snp_group_payloads
 from .pileup.snp_pileup import group_wire, site_depth, snp_pileup
 from .runtime.chunker import group_adjacent_chunks
 from .runtime.device import resolve_device
@@ -367,17 +368,19 @@ def call_snps(cfg, bam, fasta, regions_list, chunks, out_dir, exclude=None,
               exclude=exclude)
     for group in _group_adjacent(ordered_chunks, todo, cfg):
         with timer("snp.features"):
-            gf = get_snp_group_payload(bam, fasta, [c for _, c in group],
-                                       **kw)
-        gf.members = [(oi, sec) for (oi, _), (_m, sec)
-                      in zip(group, gf.members)]
-        if metrics is not None:
-            metrics.count("snp_candidates", len(gf))
-        with timer("snp.infer_decode"):
-            finish = infer_snp_group(state, gf, cfg, async_mode=True)
-            while len(in_flight) >= depth:
-                _finalize_one()
-            in_flight.append((gf, finish))
+            payloads = get_snp_group_payloads(
+                bam, fasta, [c for _, c in group], **kw)
+        # a group over the payload caps comes back as one payload a member
+        idx_of = {id(c): oi for oi, c in group}
+        for gf in payloads:
+            gf.members = [(idx_of[id(m)], sec) for m, sec in gf.members]
+            if metrics is not None:
+                metrics.count("snp_candidates", len(gf))
+            with timer("snp.infer_decode"):
+                finish = infer_snp_group(state, gf, cfg, async_mode=True)
+                while len(in_flight) >= depth:
+                    _finalize_one()
+                in_flight.append((gf, finish))
     with timer("snp.infer_decode"):
         while in_flight:  # drain the inference pipeline
             _finalize_one()

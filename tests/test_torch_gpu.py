@@ -7,13 +7,15 @@ random payloads (holes, dense exceptions, reads out of start order, a
 read over every site, every band schedule, clamped windows), one row,
 rows without neighbours, at the first and last site, deep rows with no
 valid id, windows longer than the kernel's list, and the wrapper's
-refusals. Skips without a GPU.
+refusals; a SNP decode group over the payload caps, sent member by member
+(one K3 launch a member), against its uncapped run. Skips without a GPU.
 
 Imports neither jax nor the JAX package, so that it also runs where only
 the port is installed: `python -m pytest --noconftest tests/test_torch_gpu.py`.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -26,7 +28,7 @@ from nanocaller_tpu_torch.io.bam import BamReader
 from nanocaller_tpu_torch.io.fasta import FastaFile, write_fasta
 from nanocaller_tpu_torch.pileup import snp_pileup as K3
 from nanocaller_tpu_torch.pileup.snp_features import (BAND_SCHEDULES,
-                                                      get_snp_group_payload)
+                                                      get_snp_group_payloads)
 from nanocaller_tpu_torch.sim import (BASES, TIE_KINDS, make_diploid_readset,
                                       random_group_wire, random_seq,
                                       tie_heavy_pairs, write_bam)
@@ -168,7 +170,7 @@ def snp_group(tmp_path_factory):
         members = [{"chrom": "chr_t", "start": 1 + i * 20000,
                     "end": (i + 1) * 20000, "ploidy": ploidy}
                    for i in range(3)]
-        gf = get_snp_group_payload(
+        [gf] = get_snp_group_payloads(
             BamReader(str(tmp / "reads.bam")), FastaFile(str(tmp / "ref.fa")),
             members, seq_type="ul_ont", maxcov=24)
         gf.members = [(i, sec) for i, (_m, sec) in enumerate(gf.members)]
@@ -303,3 +305,73 @@ def test_snp_pileup_wrapper_refuses():
     with pytest.raises(ValueError, match="win_hi"):
         K3.snp_pileup(dataclasses.replace(wire, win_hi=wire.win_hi[:-1]),
                       *rows)
+
+
+def _snp_records(path):
+    import gzip
+
+    with gzip.open(path, "rt") as fh:
+        return [l.rstrip("\n").split("\t") for l in fh
+                if not l.startswith("#")]
+
+
+@pytest.mark.cuda
+def test_group_over_caps_on_card(tmp_path, monkeypatch):
+    """A decode group over the payload caps on the card: each member goes
+    as a group of one (one K3 launch a member cohort), and the SNP VCFs
+    hold the uncapped group run's records (PR may differ by one unit of
+    its rounding and QUAL by one or within the parity bar: the CNN runs
+    on other batches)."""
+    _need_gpu()
+    from nanocaller_tpu_torch.config import Config
+    from nanocaller_tpu_torch.pileup import snp_features as sf
+    from nanocaller_tpu_torch.pileup.engine import decode_reads
+    from nanocaller_tpu_torch.snp_caller import call_snps
+
+    rng = np.random.default_rng(21)
+    L = 200_000
+    ref = random_seq(rng, L)
+    snps = [(p, BASES[(BASES.index(ref[p]) + 1) % 4],
+             ("het1", "het2", "hom")[k % 3])
+            for k, p in enumerate(range(900, L - 900, 1700))]
+    reads = make_diploid_readset(rng, ref, snps=snps, depth=12,
+                                 read_len=2000, error_rate=0.01)
+    fa, bam_p = str(tmp_path / "ref.fa"), str(tmp_path / "reads.bam")
+    write_fasta(fa, {"chr_t": ref})
+    write_bam(bam_p, "chr_t", L, reads)
+    bam = BamReader(bam_p)
+    cap = max(decode_reads(bam, "chr_t", 0, 150_000).n_reads,
+              decode_reads(bam, "chr_t", 50_000, L).n_reads)
+    assert cap < decode_reads(bam, "chr_t", 0, L).n_reads
+    chunks = [{"chrom": "chr_t", "start": 1, "end": 100_000,
+               "ploidy": "diploid"},
+              {"chrom": "chr_t", "start": 100_001, "end": L,
+               "ploidy": "diploid"}]
+    runs = {}
+    for name, limit in (("capped", cap), ("whole", 1 << 15)):
+        monkeypatch.setattr(sf, "_GROUP_MAX_READS", limit)
+        out = str(tmp_path / name)
+        os.makedirs(out)
+        K3.reset_counters()
+        call_snps(Config(bam=bam_p, ref=fa, mode="snps", cpu=1, output=out,
+                         prefix="p", sample="S", device="cuda"),
+                  BamReader(bam_p), FastaFile(fa),
+                  [("chr_t", 1, L, "diploid")], [dict(c) for c in chunks],
+                  out)
+        runs[name] = (K3.SNP_PILEUP_LAUNCHES,
+                      _snp_records(os.path.join(out,
+                                                "p.unfiltered.snps.vcf.gz")))
+    assert runs["capped"][0] == 2 and runs["whole"][0] == 1
+    got, want = runs["capped"][1], runs["whole"][1]
+    assert len(got) == len(want) > 50
+    for x, y in zip(got, want):
+        if x == y:
+            continue
+        assert x[:5] + x[6:7] + x[8:] == y[:5] + y[6:7] + y[8:], (x, y)
+        # QUAL: one unit of %.3f, or implied probabilities within 2e-5
+        qx, qy = float(x[5]), float(y[5])
+        assert abs(qx - qy) <= 0.0010001 or \
+            abs(10 ** (-qx / 10) - 10 ** (-qy / 10)) <= 2e-5, (x, y)
+        px = [float(v) for v in x[7].split(";")[0][3:].split(",")]
+        py = [float(v) for v in y[7].split(";")[0][3:].split(",")]
+        assert np.abs(np.subtract(px, py)).max() <= 1.0001e-4, (x, y)

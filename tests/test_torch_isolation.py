@@ -1,5 +1,6 @@
-"""The port imports neither jax/flax/optax nor anything of nanocaller_tpu,
-and device="cuda" without a GPU raises."""
+"""The port imports neither jax/flax/optax nor anything of nanocaller_tpu
+(its native library, CRAM and rANS modules included; the library builds
+from the port's own ncio.cpp), and device="cuda" without a GPU raises."""
 
 import os
 import re
@@ -32,13 +33,19 @@ mods = [m.name for m in pkgutil.walk_packages(nanocaller_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 assert {"nanocaller_tpu_torch.phase.mec", "nanocaller_tpu_torch.phase.wmec",
-        "nanocaller_tpu_torch.phase.wmec_oracle"} <= set(mods), mods
+        "nanocaller_tpu_torch.phase.wmec_oracle",
+        "nanocaller_tpu_torch.io.native", "nanocaller_tpu_torch.io.cram",
+        "nanocaller_tpu_torch.io.rans"} <= set(mods), mods
+# the native library builds from the port's own source and loads
+from nanocaller_tpu_torch.io import native
+assert native.get_lib() is not None
+assert native._SRC.startswith(%r)
 import chip_smoke
 assert callable(chip_smoke.main)
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCK]
 assert not bad, bad
 print("imported", len(mods))
-""" % REPO
+""" % (REPO, os.path.join(REPO, "nanocaller_tpu_torch", ""))
 
 
 def test_imports_with_jax_blocked():

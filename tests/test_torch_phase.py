@@ -109,20 +109,40 @@ def test_exact_refine_and_phase_obs_equal(seed):
     assert got.n_blocks >= 1
 
 
-def test_block_cap_is_the_python_trellis_bound(monkeypatch):
-    """The port caps a block as the JAX package does without its native
-    library; with it, the JAX package admits 16x the cells, so the two
-    agree up to cell_budget / 2**max_cov sites (ROADMAP §C)."""
+@pytest.mark.parametrize("n_sites,cap", [(18_310, 15), (18_311, 15),
+                                          (36_621, 15), (300_000, 14)])
+def test_block_cap_is_the_python_trellis_bound(n_sites, cap):
+    """The port caps a block as the JAX package does with its native
+    library loaded: 16x the cell budget (the checkpointed trellis), so
+    cap 15 holds up to 16 * 600,000,000 / 2**15 = 292,968 sites. Below
+    18,311 sites both packages agreed before the port had the library
+    (ROADMAP §C)."""
+    from nanocaller_tpu_torch.io import native as p_native
+
+    assert j_native.get_lib() is not None and p_native.get_lib() is not None
     budget = 600_000_000
-    limit = budget // (1 << 15)  # 18,310 sites
-    sizes = (2, 1000, limit, limit + 1, 70_000, 300_000)
-    with_lib = [JW._block_cap(n, 15, budget) for n in sizes]
-    monkeypatch.setattr(j_native, "get_lib", lambda: None)
-    assert [PW._block_cap(n, 15, budget) for n in sizes] == \
-        [JW._block_cap(n, 15, budget) for n in sizes]
-    got = [PW._block_cap(n, 15, budget) for n in sizes]
-    assert got[:3] == with_lib[:3] == [15, 15, 15]
-    assert got[3] == 14 and with_lib[3] == 15
+    assert PW._block_cap(n_sites, 15, budget) == \
+        JW._block_cap(n_sites, 15, budget) == cap
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_exact_refine_past_the_python_trellis_bound(seed):
+    """exact_refine on a 100-site block with the cell budget lowered to
+    300,000: 1x the budget would cap the block at 11 active reads, the
+    native trellis's 16x keeps 15 (and runs the block in checkpoint mode
+    only past its own 64,000,000-cell floor). Port and JAX package (both
+    with their libraries) agree on the refined haplotype."""
+    rng, rids, sidx, al, _n_reads, n = _block(100 + seed, depth=20,
+                                              n_sites=100)
+    comp = JW.components(rids, sidx, n)
+    assert np.bincount(comp).max() >= 90
+    assert PW._block_cap(100, 15, 300_000) == 15
+    h = rng.integers(0, 2, n).astype(np.int8)
+    got = PW.exact_refine(rids, sidx, al, n, comp, h, cell_budget=300_000)
+    np.testing.assert_array_equal(
+        got, JW.exact_refine(rids, sidx, al, n, comp, h,
+                             cell_budget=300_000))
+    assert (got != h).any()
 
 
 @pytest.fixture(scope="module")

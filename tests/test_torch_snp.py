@@ -4,10 +4,14 @@ the group payload and the neighbour selection (exact), K3's plain twin
 _device_select_neighbors_clamped and its tensor against what
 _rid_matrix + _group_cell_codes + the _snp_forward_dense assembly give
 (both exact), its read windows against brute force, and
-infer_snp_group's probabilities (atol 2e-5)."""
+infer_snp_group's probabilities (atol 2e-5); a decode group over the
+payload caps, sent member by member, against the JAX package's
+per-member fallback (the SNP VCF bytes)."""
 
 import copy
 import dataclasses
+import gzip
+import os
 
 import numpy as np
 import pytest
@@ -29,9 +33,10 @@ from nanocaller_tpu_torch import snp_caller as P
 from nanocaller_tpu_torch.io.bam import BamReader
 from nanocaller_tpu_torch.io.fasta import FastaFile
 from nanocaller_tpu_torch.pileup import snp_pileup as K3
+from nanocaller_tpu_torch.pileup.engine import decode_reads
 from nanocaller_tpu_torch.pileup.snp_features import (BAND_SCHEDULES,
                                                       CENTER, WIDTH,
-                                                      get_snp_group_payload)
+                                                      get_snp_group_payloads)
 from nanocaller_tpu_torch.sim import random_group_wire
 
 from fixtures import BASES, make_fixture, random_seq
@@ -90,7 +95,7 @@ def payloads(snp_fixture):
         want = j_get_snp_group_payload(
             JBamReader(bam_p), JFastaFile(fasta_p), mem, seq_type=seq_type,
             maxcov=maxcov)
-        got = get_snp_group_payload(
+        [got] = get_snp_group_payloads(
             BamReader(bam_p), FastaFile(fasta_p), mem, seq_type=seq_type,
             maxcov=maxcov)
         out[seq_type, maxcov, ploidy] = (_remap(want), _remap(got))
@@ -379,8 +384,8 @@ def test_infer_snp_group_probabilities(payloads, states, case):
 
 def test_empty_group_gives_empty_members(snp_fixture, states):
     fasta_p, bam_p = snp_fixture
-    gf = get_snp_group_payload(BamReader(bam_p), FastaFile(fasta_p),
-                               MEMBERS[1:2], maxcov=160)
+    [gf] = get_snp_group_payloads(BamReader(bam_p), FastaFile(fasta_p),
+                                  MEMBERS[1:2], maxcov=160)
     assert len(gf) == 0 and [s for _, s in gf.members] == [None]
     outs = P.infer_snp_group(states[1], _remap(gf), Cfg())
     assert [o.shape for o in outs] == [(0, 4)]
@@ -445,3 +450,117 @@ def test_pileup_cohorts_refuse_rows_deeper_than_maxcov(payloads, states):
                          for _, sec in gf.members if sec is not None) - 1
     with pytest.raises(ValueError, match="deeper than maxcov"):
         P.pileup_cohorts(state, shallow, Cfg())
+
+
+# A2a: a decode group over the payload caps. Two 100 kb members of a
+# 200 kb contig: each member's scan window (±50 kb) holds ~3/4 of the
+# contig's reads, the group's window all of them, so a read cap between
+# the two sends the group member by member in both packages.
+A2A_L = 200_000
+A2A_CHUNKS = [{"chrom": "chr_t", "start": 1, "end": 100_000,
+               "ploidy": "diploid"},
+              {"chrom": "chr_t", "start": 100_001, "end": A2A_L,
+               "ploidy": "diploid"}]
+
+
+@pytest.fixture(scope="module")
+def a2a_fixture(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_snp_a2a")
+    ref = random_seq(np.random.default_rng(21), A2A_L)
+    snps = [(p, BASES[(BASES.index(ref[p]) + 1) % 4],
+             ("het1", "het2", "hom")[k % 3])
+            for k, p in enumerate(range(900, A2A_L - 900, 1700))]
+    fasta_p, bam_p, _, _ = make_fixture(tmp, seed=21, L=A2A_L, depth=12,
+                                        read_len=2000, snps=snps,
+                                        error_rate=0.01)
+    bam = BamReader(bam_p)
+    n = lambda lo, hi: decode_reads(bam, "chr_t", lo, hi).n_reads
+    group = n(0, A2A_L)
+    cap = max(n(0, 150_000), n(50_000, A2A_L))
+    assert cap < group
+    return str(tmp), fasta_p, bam_p, cap
+
+
+def _call_snps(side, a2a_fixture, out, cap, monkeypatch):
+    from nanocaller_tpu.config import Config as JConfig
+    from nanocaller_tpu.pileup import snp_features as j_sf
+    from nanocaller_tpu_torch.config import Config as PConfig
+    from nanocaller_tpu_torch.pileup import snp_features as p_sf
+
+    tmp, fasta_p, bam_p, _ = a2a_fixture
+    kw = dict(bam=bam_p, ref=fasta_p, mode="snps", cpu=1, batch_size=128,
+              output=os.path.join(tmp, out), prefix="p", sample="S")
+    os.makedirs(kw["output"], exist_ok=True)
+    regions = [("chr_t", 1, A2A_L, "diploid")]
+    chunks = [dict(c) for c in A2A_CHUNKS]
+    if side == "jax":
+        monkeypatch.setattr(j_sf, "_GROUP_MAX_READS", cap)
+        J.call_snps(JConfig(**kw), JBamReader(bam_p), JFastaFile(fasta_p),
+                    regions, chunks, kw["output"])
+    else:
+        monkeypatch.setattr(p_sf, "_GROUP_MAX_READS", cap)
+        P.call_snps(PConfig(device="cpu", **kw), BamReader(bam_p),
+                    FastaFile(fasta_p), regions, chunks, kw["output"])
+    names = ("p.unfiltered.snps.vcf.gz", "p.snps.vcf.gz")
+    out = []
+    for name in names:
+        with gzip.open(os.path.join(kw["output"], name)) as fh:
+            out.append(fh.read())
+    return out
+
+
+def _pr_rounding_cases(a, b):
+    """Records of two SNP VCF texts, equal field for field except PR
+    values (%.4f) one unit apart: the parity bar's rounding exception
+    (ROADMAP "Parity bar"). Returns those cases; fails on any other
+    difference."""
+    ra = [l.split("\t") for l in a.decode().splitlines()]
+    rb = [l.split("\t") for l in b.decode().splitlines()]
+    assert len(ra) == len(rb)
+    cases = []
+    for x, y in zip(ra, rb):
+        if x == y:
+            continue
+        assert x[:7] == y[:7] and x[8:] == y[8:], (x, y)
+        ix, iy = x[7].split(";"), y[7].split(";")
+        assert ix[1:] == iy[1:], (x, y)
+        for u, v in zip(ix[0][3:].split(","), iy[0][3:].split(",")):
+            assert abs(float(u) - float(v)) <= 1.0001e-4, (x, y)
+        cases.append(int(x[1]))
+    return cases
+
+
+def test_group_over_caps_goes_member_by_member(a2a_fixture, monkeypatch):
+    """With the read cap lowered under the group's decoded reads in both
+    packages, the port sends each member as a group of one (one K3 cohort
+    each), and its SNP VCFs equal its uncapped group run byte for byte
+    and the JAX package's per-member fallback record for record: on this
+    fixture one PR value of the JAX CNN and the port's straddles a %.4f
+    rounding (position 2601: 0.0245 vs 0.0244), the parity bar's
+    exception, which the JAX package's own group run shares."""
+    _tmp, fasta_p, bam_p, cap = a2a_fixture
+    payloads = []
+    real = P.get_snp_group_payloads
+    monkeypatch.setattr(P, "get_snp_group_payloads", lambda *a, **k: (
+        payloads.append(real(*a, **k)) or payloads[-1]))
+    want = _call_snps("jax", a2a_fixture, "jax", cap, monkeypatch)
+    got = _call_snps("port", a2a_fixture, "port", cap, monkeypatch)
+    assert [len(p) for p in payloads] == [2]  # one payload a member
+    assert [[oi for oi, _ in gf.members] for gf in payloads[0]] == [[0], [1]]
+    assert got[1].count(b"\tPASS\t") >= 20
+    assert [_pr_rounding_cases(g, w) for g, w in zip(got, want)] == \
+        [[2601], []]
+    payloads.clear()
+    whole = _call_snps("port", a2a_fixture, "port_whole", 1 << 15,
+                       monkeypatch)
+    assert [len(p) for p in payloads] == [1] and whole == got
+
+
+def test_member_over_caps_raises_naming_b6(a2a_fixture, monkeypatch):
+    from nanocaller_tpu_torch.pileup import snp_features as p_sf
+
+    _tmp, fasta_p, bam_p, _cap = a2a_fixture
+    monkeypatch.setattr(p_sf, "_GROUP_MAX_READS", 10)
+    with pytest.raises(NotImplementedError, match="B6"):
+        get_snp_group_payloads(BamReader(bam_p), FastaFile(fasta_p),
+                               [dict(c) for c in A2A_CHUNKS])
