@@ -71,11 +71,28 @@ Phases, each printing one JSON line per case:
 11. CRAM input: a 500 kb cut of phase 9's fixture written as BAM and, by
    the port's CramWriter, as CRAM, each through `--mode all --cpu 1` on
    cuda: the five VCFs byte-identical, the .phased.cram artifact
-   record-identical to the .phased.bam one.
+   record-identical to the .phased.bam one;
+12. the main path, `--mode all --cpu N` (N = min(8, cores)) with
+   --haploid_X on three untagged contigs: two diploid 2 Mb contigs and a
+   500 kb chrX of hom SNPs (30x, 8 kb reads, phase 9's densities). The
+   feature workers (spawned, no torch) build the SNP payloads, phase
+   each diploid contig and collect the indel jobs; this process owns the
+   card and runs K3, the SNP CNN, finish_indel_jobs (K1 + K2 over every
+   pending chunk's pairs) and the indel CNN. Runs: cuda --cpu 1 (wall
+   only), cuda --cpu N with the counters reset just before and read
+   just after (K1, K2 and K3 must all launch) while nvidia-smi's compute
+   apps and the workers' memory maps are polled (no process but this
+   one may hold a CUDA context, and no worker may map libcuda), a second
+   cuda --cpu N run (byte-identical VCFs), cpu --cpu N (the same chunks;
+   the records by phase 9's rules, hiq sets, phase maps and artifacts);
+   the cuda --cpu 1 run's records too, by the same rules, where --cpu 1
+   and --cpu N cut the same chunks;
+   the stage timeline must unlock a contig's indels before the last
+   contig is phased; then the cuda --cpu N run under torch.profiler.
 
-Then one JSON line with every kernel's launches (on the --mode all run;
-each path's own under launches_by_path), error and times, the
-nvidia-smi line, and as the last line
+Then one JSON line with every kernel's launches (on the main path's
+--mode all --cpu N run; each path's own under launches_by_path), error
+and times, the nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure exits non-zero before that line. Without a GPU, or without
 the port's package beside this file, it exits non-zero at once.
@@ -173,6 +190,12 @@ ALL_FIXTURE_LEN = 2_000_000
 # the CRAM phase's contig: a 500 kb cut of the --mode all fixture (the
 # same seed and densities), run from a BAM and from a CRAM
 CRAM_FIXTURE_LEN = 500_000
+# the main path's fixture (phase 12): (name, bp, seed, SNP every, indel
+# every, hom SNPs only) of each contig, phase 9's densities; chrX is
+# haploid under --haploid_X
+DAG_CONTIGS = [("chr1", 2_000_000, 3031, 1000, 5000, False),
+               ("chr2", 2_000_000, 3032, 1000, 5000, False),
+               ("chrX", 500_000, 3033, 1000, 5000, True)]
 
 
 def emit(obj):
@@ -1106,7 +1129,6 @@ def phase_a2a(tmp, fasta_p, bam_p):
     batches)."""
     from nanocaller_tpu_torch import cli
     from nanocaller_tpu_torch.io.bam import BamReader
-    from nanocaller_tpu_torch.io.fasta import FastaFile
     from nanocaller_tpu_torch.pileup import snp_features as SF
     from nanocaller_tpu_torch.pileup import snp_pileup as K3
     from nanocaller_tpu_torch.pileup.engine import decode_reads
@@ -1148,8 +1170,7 @@ def phase_a2a(tmp, fasta_p, bam_p):
         try:
             K3.reset_counters()
             t0 = time.perf_counter()
-            call_snps(cfg, bam, FastaFile(fasta_p), regions,
-                      [dict(m) for m in group], out)
+            call_snps(cfg, bam, regions, [dict(m) for m in group], out)
             runs[name] = (K3.SNP_PILEUP_LAUNCHES, time.perf_counter() - t0,
                           os.path.join(out, "smoke.snps.vcf.gz"))
         finally:
@@ -1247,6 +1268,286 @@ def phase_cram_all(tmp):
           "cram_timers_s": timers["cram"]})
 
 
+def _child_pids(pid):
+    """PIDs of the live processes whose parent is `pid`."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open("/proc/%s/stat" % d) as fh:
+                stat = fh.read()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            out.append(int(d))
+    return out
+
+
+def _is_pool_worker(pid):
+    """Whether `pid` is a worker that multiprocessing's `spawn` started
+    (its command line runs spawn_main); the resource tracker, which
+    spawn also starts, is not one."""
+    try:
+        with open("/proc/%d/cmdline" % pid, "rb") as fh:
+            return b"spawn_main" in fh.read()
+    except OSError:
+        return False
+
+
+def _maps_libcuda(pid):
+    try:
+        with open("/proc/%d/maps" % pid) as fh:
+            return "libcuda" in fh.read()
+    except OSError:
+        return False
+
+
+def _cmdline(pid):
+    try:
+        with open("/proc/%d/cmdline" % pid, "rb") as fh:
+            return fh.read()
+    except OSError:
+        return None
+
+
+class CudaContextWatch:
+    """Polls, on a thread, nvidia-smi's compute apps (the PIDs that hold
+    a CUDA context on the card; in a container it may list none, or
+    PIDs of the host's namespace, so `smi_polls_with_pids` says how many
+    polls listed any) and the memory maps of this process's children
+    (every child: one that loaded the CUDA driver maps libcuda).
+    `workers` are the children that are spawn's pool workers.
+
+    A child that `spawn` (or any subprocess) has forked but not yet
+    exec'd still shares or copies this process's memory, libcuda
+    included, and still shows this process's command line. It maps
+    libcuda for that moment without having loaded anything, so such a
+    child counts in `cuda_children` only if it is still an un-exec'd
+    copy of this process `fork_grace` seconds after it was first seen
+    (a fork that never execs keeps this process's mappings for good);
+    `fork_windows` counts the polls that met one. A child that has
+    exec'd and maps libcuda counts at once."""
+
+    def __init__(self, period=0.25, fork_grace=2.0):
+        import threading
+
+        self.period, self.fork_grace = period, fork_grace
+        self.smi_pids, self.workers, self.cuda_children = set(), set(), set()
+        self.polls = self.smi_polls_with_pids = self.fork_windows = 0
+        self._forks = {}  # pid -> when first seen un-exec'd, mapping libcuda
+        self._stop = threading.Event()
+        self._th = threading.Thread(target=self._run, daemon=True)
+
+    def _check_child(self, c, mine, now):
+        before = _cmdline(c)
+        maps = _maps_libcuda(c)
+        after = _cmdline(c)
+        if before is None or after is None or before != after:
+            return  # gone, or exec'd during the reads: next poll decides
+        if _is_pool_worker(c):
+            self.workers.add(c)
+        if not maps:
+            self._forks.pop(c, None)
+        elif after == mine:
+            self.fork_windows += 1
+            if now - self._forks.setdefault(c, now) >= self.fork_grace:
+                self.cuda_children.add(c)
+        else:
+            self.cuda_children.add(c)
+
+    def _run(self):
+        me = os.getpid()
+        mine = _cmdline(me)
+        while not self._stop.is_set():
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-compute-apps=pid",
+                     "--format=csv,noheader"], capture_output=True,
+                    text=True, timeout=30).stdout
+                pids = {int(x) for x in out.split() if x.isdigit()}
+                self.smi_pids |= pids
+                self.smi_polls_with_pids += bool(pids)
+            except (OSError, subprocess.SubprocessError):
+                pass
+            now = time.monotonic()
+            for c in _child_pids(me):
+                self._check_child(c, mine, now)
+            self.polls += 1
+            self._stop.wait(self.period)
+
+    def __enter__(self):
+        self._th.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._th.join()
+
+
+def phase_dag(tmp):
+    """Phase 12: the main path, `--mode all --cpu N` on the card, with the
+    feature workers, the per-contig phase→indel DAG and every worker's
+    indel jobs aligned in this process on K1/K2 (see the module
+    docstring). Returns the counters of the cuda --cpu N run."""
+    from nanocaller_tpu_torch import cli
+    from nanocaller_tpu_torch.align import nw_kernels as K
+    from nanocaller_tpu_torch.pileup import snp_pileup as K3
+    from nanocaller_tpu_torch.sim import write_contigs_fixture
+
+    n = min(8, os.cpu_count() or 1)
+    d = os.path.join(tmp, "dag_fixture")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    fasta_p, bam_p, planted, n_reads = write_contigs_fixture(
+        d, DAG_CONTIGS, depth=30, read_len=8000, error_rate=0.03,
+        indel_error_rate=0.01)
+    t_fixture = time.perf_counter() - t0
+    diploid = [c[0] for c in DAG_CONTIGS if not c[5]]
+
+    def argv(dev, cpu, out):
+        return ["--bam", bam_p, "--ref", fasta_p, "--mode", "all", "--cpu",
+                str(cpu), "--haploid_X", "--device", dev, "--output",
+                os.path.join(tmp, out), "--prefix", "smoke", "--sample", "S",
+                "--suppress_progress_bar"]
+
+    def drive(dev, cpu, out, watch=False):
+        K.reset_counters()
+        K3.reset_counters()
+        w = CudaContextWatch() if watch else None
+        t0 = time.perf_counter()
+        if w:
+            with w:
+                outputs = cli.main(argv(dev, cpu, out))
+        else:
+            outputs = cli.main(argv(dev, cpu, out))
+        wall = time.perf_counter() - t0
+        counts = {"SNP_PILEUP_LAUNCHES": K3.SNP_PILEUP_LAUNCHES,
+                  "NW_TB_LAUNCHES": K.NW_TB_LAUNCHES,
+                  "NW_WALK_LAUNCHES": K.NW_WALK_LAUNCHES,
+                  "NW_TB_PAIRS": K.NW_TB_PAIRS}
+        with open(os.path.join(tmp, out, "metrics.json")) as fh:
+            metrics = json.load(fh)
+        return outputs, wall, counts, metrics, w
+
+    runs = {"cuda1": drive("cuda", 1, "dag_cuda1"),
+            "cudaN": drive("cuda", n, "dag_cudaN", watch=True),
+            "cudaN_again": drive("cuda", n, "dag_cudaN_again"),
+            "cpuN": drive("cpu", n, "dag_cpuN")}
+    outs, wall, counts, metrics, watch = runs["cudaN"]
+    for k in ("SNP_PILEUP_LAUNCHES", "NW_TB_LAUNCHES", "NW_WALK_LAUNCHES"):
+        if not counts[k] > 0:
+            fail("--mode all --cpu %d did not launch %s" % (n, k))
+    if any(runs["cpuN"][2][k] for k in ("SNP_PILEUP_LAUNCHES",
+                                        "NW_TB_LAUNCHES")):
+        fail("the cpu run launched a CUDA kernel")
+    # the device owner holds a context all along, so nvidia-smi must list
+    # one process at most (its PID may be the host's, in a container)
+    if len(watch.smi_pids) > 1 or watch.cuda_children:
+        fail("a process other than the device owner (%d) held a CUDA "
+             "context: nvidia-smi %s, workers mapping libcuda %s"
+             % (os.getpid(), sorted(watch.smi_pids),
+                sorted(watch.cuda_children)))
+    if len(watch.workers) < min(n, 2):
+        fail("saw %d spawned worker processes, not the --cpu %d pool"
+             % (len(watch.workers), n))
+    unf = lambda p: p.replace(".snps.vcf.gz", ".unfiltered.snps.vcf.gz")
+    paths = lambda o: [unf(o["snps"])] + [o[k] for k in (
+        "snps", "phased_snps", "indels", "final")]
+    again = runs["cudaN_again"][0]
+    for a, b in zip(paths(outs), paths(again)):
+        with gzip.open(a) as fa, gzip.open(b) as fb:
+            if fa.read() != fb.read():
+                fail("two cuda --cpu %d runs differ in %s"
+                     % (n, os.path.basename(a)))
+    # --cpu 1 and --cpu N cut this fixture into the same chunks, so the
+    # inline path and the workers' path must call the same records (the
+    # CNN batches differ: the SNP rules allow their rounding cases)
+    from nanocaller_tpu_torch.io.bam import BamReader
+    from nanocaller_tpu_torch.runtime.chunker import (get_chunks,
+                                                      get_regions_list)
+
+    regions = get_regions_list(cli.config_from_args(argv("cuda", n, "x")),
+                               BamReader(bam_p))
+    serial_cases = None
+    if get_chunks(regions, 1) == get_chunks(regions, n):
+        serial_cases = 0
+        for name, a, b, kind in zip(
+                ("unfiltered", "snps", "snps.phased", "indels", "final"),
+                paths(outs), paths(runs["cuda1"][0]),
+                ("snp", "snp", "snp", "indel", "any")):
+            serial_cases += len(compare_records(a, b, kind)[1])
+    cpu_outs = runs["cpuN"][0]
+    records, cases = {}, []
+    for name, a, b, kind in zip(
+            ("unfiltered", "snps", "snps.phased", "indels", "final"),
+            paths(outs), paths(cpu_outs),
+            ("snp", "snp", "snp", "indel", "any")):
+        records[name], diffs = compare_records(a, b, kind)
+        cases += [dict(x, vcf=name) for x in diffs]
+    for x in cases:
+        emit({"phase": "dag_rounding_case", **x})
+    pdir = lambda out: os.path.join(tmp, out, "intermediate_phase_files")
+    tagged = 0
+    for c in diploid:
+        sets = [_vcf_phase_sets(os.path.join(
+            pdir(o), "%s.snps.phased.vcf.gz" % c))
+            for o in ("dag_cudaN", "dag_cpuN")]
+        if sets[0][0] != sets[1][0] or sets[0][1] != sets[1][1]:
+            fail("the hiq set or phase map of %s differs between the cuda "
+                 "and cpu --cpu %d runs" % (c, n))
+        arts = [_alignment_records(os.path.join(
+            pdir(o), "%s.phased.bam" % c), fasta_p)
+            for o in ("dag_cudaN", "dag_cpuN")]
+        if arts[0] != arts[1]:
+            fail("the %s artifacts of the cuda and cpu runs differ" % c)
+        tagged += sum(1 for r in arts[0] if r[-1])
+    timeline = metrics.get("stage_timeline", [])
+    unlocked = [e["t"] for e in timeline if e["stage"] == "indels_unlocked"]
+    done = [e["t"] for e in timeline if e["stage"] == "phase_done"]
+    if len(done) != len(diploid) or not unlocked or \
+            not min(unlocked) < max(done):
+        fail("the stage timeline shows no indel unlock before the last "
+             "phase_done: %s" % timeline[:12])
+    n_snps = sum(len(p[0]) for p in planted.values())
+    n_indels = sum(len(p[1]) for p in planted.values())
+    if records["snps"] < n_snps // 2 or records["indels"] < n_indels // 2 \
+            or tagged < n_reads // 3:
+        fail("too little was called or tagged: %s, %d reads tagged"
+             % (records, tagged))
+    K.reset_counters()
+    K3.reset_counters()
+    prof, kern, dev = profile_slice(
+        cli, argv("cuda", n, "dag_prof"),
+        ("nw_tb_rows_kernel", "nw_tb_wave_kernel", "nw_walk_kernel",
+         "snp_pileup_kernel"))
+    emit({"phase": "dag", "cpu": n, "contigs": [c[:2] for c in DAG_CONTIGS],
+          "reads": n_reads, "planted_snps": n_snps,
+          "planted_indels": n_indels, "fixture_s": t_fixture,
+          "records": records, "rounding_cases": len(cases),
+          "cuda1_vs_cudaN_rounding_cases": serial_cases,
+          "cases_past_one_unit": sum(1 for x in cases
+                                     if x.get("units", 1) > 1),
+          "artifact_tagged": tagged,
+          "walls_s": {k: v[1] for k, v in runs.items()},
+          "timers_s": {k: v[3]["timers_s"] for k, v in runs.items()},
+          "counts": {k: v[3]["counts"] for k, v in runs.items()},
+          "launches_cuda1": runs["cuda1"][2], **counts,
+          "stage_timeline": timeline[:40],
+          "workers_seen": len(watch.workers), "watch_polls": watch.polls,
+          "smi_polls_with_pids": watch.smi_polls_with_pids,
+          "fork_windows_seen": watch.fork_windows,
+          "nvidia_smi_compute_pids": sorted(watch.smi_pids),
+          "device_owner_pid": os.getpid()})
+    emit({"phase": "dag_profile", **prof})
+    emit({"phase": "dag_profile_kernels", **kern,
+          "launches_k3": K3.SNP_PILEUP_LAUNCHES,
+          "launches_k1": K.NW_TB_LAUNCHES,
+          "copies_us": sum(us for k, (us, _) in dev.items()
+                           if "Memcpy" in k or "Memset" in k)})
+    return counts
+
+
 def main():
     import torch
 
@@ -1293,6 +1594,7 @@ def main():
         all_counts = phase_all_slice(tmp)
         phase_a2a(tmp, fasta_p, bam_p)
         phase_cram_all(tmp)
+        dag_counts = phase_dag(tmp)
 
     def pick(phase):
         return next(r for r in rows if r["phase"] == phase and
@@ -1309,9 +1611,10 @@ def main():
         {"name": "nw_tb", "route": "cuda",
          "source": "nanocaller_tpu_torch/csrc/nw_tb.cu",
          "replaces": "nanocaller_tpu/align/pallas_nw.py:102",
-         "launches": all_counts["NW_TB_LAUNCHES"],
+         "launches": dag_counts["NW_TB_LAUNCHES"],
          "launches_by_path": {"indels": counts["NW_TB_LAUNCHES"],
-                              "all": all_counts["NW_TB_LAUNCHES"]},
+                              "all": all_counts["NW_TB_LAUNCHES"],
+                              "all_cpuN": dag_counts["NW_TB_LAUNCHES"]},
          "max_abs_err": max_err("K1_nw_tb"),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -1319,9 +1622,10 @@ def main():
         {"name": "nw_walk", "route": "cuda",
          "source": "nanocaller_tpu_torch/csrc/nw_walk.cu",
          "replaces": "nanocaller_tpu/align/batch_nw.py:134",
-         "launches": all_counts["NW_WALK_LAUNCHES"],
+         "launches": dag_counts["NW_WALK_LAUNCHES"],
          "launches_by_path": {"indels": counts["NW_WALK_LAUNCHES"],
-                              "all": all_counts["NW_WALK_LAUNCHES"]},
+                              "all": all_counts["NW_WALK_LAUNCHES"],
+                              "all_cpuN": dag_counts["NW_WALK_LAUNCHES"]},
          "max_abs_err": max_err("K2_nw_walk"),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -1329,9 +1633,10 @@ def main():
         {"name": "snp_pileup", "route": "cuda",
          "source": "nanocaller_tpu_torch/csrc/snp_pileup.cu",
          "replaces": "nanocaller_tpu/snp_caller.py:417 and :483",
-         "launches": all_counts["SNP_PILEUP_LAUNCHES"],
+         "launches": dag_counts["SNP_PILEUP_LAUNCHES"],
          "launches_by_path": {"snps": snp_counts["SNP_PILEUP_LAUNCHES"],
-                              "all": all_counts["SNP_PILEUP_LAUNCHES"]},
+                              "all": all_counts["SNP_PILEUP_LAUNCHES"],
+                              "all_cpuN": dag_counts["SNP_PILEUP_LAUNCHES"]},
          "max_abs_err": max_err("K3_snp_pileup", k3_rows),
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],

@@ -3,9 +3,11 @@
 A second package beside the JAX one, which stays the reference. It
 imports torch, numpy and the standard library, never jax, flax or
 nanocaller_tpu. Entry points run on "cuda" unless the caller passes
-device="cpu". This slice covers `--mode indels --cpu 1` end to end, with
-the NW traceback DP and its walk as hand-written CUDA kernels
-(align/nw_kernels.py, csrc/).
+device="cpu". It runs `--mode snps|indels|all` at `--cpu 1` and
+`--cpu N` end to end, with the NW traceback DP, its walk and the SNP
+group pileup as hand-written CUDA kernels (csrc/). Under `--cpu N` the
+host work runs in feature workers that never import torch
+(runtime/workers.py); the device has one owner, the main process.
 """
 
 __version__ = "0.1.0"

@@ -31,10 +31,20 @@ haplotags injected in memory) → read-vs-ref and allele NW on the device
 `--mode indels` the input's own HP/PS tags are read, as the reference's
 indel stage does.
 
+`--cpu N > 1`: the host work runs in N feature workers that never
+import torch (runtime/workers.py, spawned): the SNP group payloads, the
+phasing of each diploid contig, and the indel candidates' MSA jobs. This
+process owns the device: it runs K3 and the SNP CNN on each payload as
+it arrives, and gathers the workers' indel jobs, contig by contig in
+chunk order, into finish_indel_jobs (every pending chunk's pairs in one
+K1 + K2 round) and the indel CNN. With phasing (`--mode all`, `snps
+--phase`) the stages form a per-contig DAG: a contig's indel chunks
+start the moment its phasing is done, while other contigs still phase
+(_run_phase_indel_dag).
+
 `--resume` reuses completed SNP and indel chunks through the run
-manifest; phasing reruns, as in the JAX package. `--cpu N > 1` and the
-other options not ported yet raise NotImplementedError naming the
-ROADMAP item that brings them.
+manifest; phasing reruns, as in the JAX package. The options not ported
+yet raise NotImplementedError naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -53,21 +63,27 @@ from .io.bed import BedIntervals
 from .io.cram import CramWriter
 from .io.fasta import FastaFile
 from .io.vcf import VcfReader, VcfWriter, concat
-from .phase.mec import haplotag_reads, phase_contig, write_phased_vcf
-from .pileup.engine import decode_reads_parallel
-from .pileup.indel_features import get_indel_candidates
-from .runtime.chunker import get_chunks, get_regions_list
+from .pileup.indel_features import (finish_indel_jobs, get_indel_candidates,
+                                    n_jobs)
+from .runtime.chunker import (get_chunks, get_regions_list,
+                              group_adjacent_chunks)
 from .runtime.metrics import Metrics, profile_region
-from .runtime.scheduler import Progress, RunManifest
+from .runtime.scheduler import Progress, RunManifest, feature_stream
+from .runtime.workers import (cfg_kwargs_for_workers,
+                              indel_features_group_worker, load_tags,
+                              phase_contig_worker, phase_one_contig)
 from .snp_caller import call_snps
+
+# shared-decode group span for 100 kb indel chunks: ~16 chunks per worker
+# task amortizes the per-window decode while keeping dozens of tasks in
+# flight for load balance
+_INDEL_GROUP_SPAN = 1_600_000
+# indel candidates (--cpu 1) or MSA jobs (--cpu N) gathered per device
+# pass: 100 kb chunks carry only a handful each
+_FLUSH_AT = 384
 
 
 def _check_supported(cfg):
-    if cfg.cpu != 1:
-        raise NotImplementedError(
-            "--cpu %d is not ported yet: the port runs --cpu 1; feature "
-            "workers and the phase→indel DAG are ROADMAP queue A item A5 "
-            "(--cpu N workers)" % cfg.cpu)
     if cfg.num_processes > 1 or cfg.num_shards > 1:
         raise NotImplementedError(
             "multi-process / sharded runs are ROADMAP queue A item A6 "
@@ -107,9 +123,10 @@ def run(cfg: Config, progress=None):
 
     fasta = FastaFile(cfg.ref)
     bam = open_alignment(cfg.bam, fasta=fasta)
-    exclude = None
+    exclude = exclude_path = None
     if cfg.exclude_bed:
-        exclude = BedIntervals(resolve_exclude_bed(cfg.exclude_bed))
+        exclude_path = resolve_exclude_bed(cfg.exclude_bed)
+        exclude = BedIntervals(exclude_path)
 
     regions_list = get_regions_list(cfg, bam)
     outputs = {"snps": None, "phased_snps": None, "indels": None, "final": None}
@@ -118,9 +135,9 @@ def run(cfg: Config, progress=None):
         with metrics.timer("snp_calling"), profile_region(
                 os.path.join(cfg.output, "trace"), enabled=cfg.profile):
             outputs["snps"] = call_snps(
-                cfg, bam, fasta, regions_list, chunks, cfg.output,
-                exclude=exclude, progress=progress, manifest=manifest,
-                metrics=metrics)
+                cfg, bam, regions_list, chunks, cfg.output,
+                progress=progress, manifest=manifest, metrics=metrics,
+                exclude_path=exclude_path)
         metrics.count("snp_chunks", len(chunks))
 
     # contig extents (indelCaller.py:299-305)
@@ -134,16 +151,34 @@ def run(cfg: Config, progress=None):
 
     tags_by_contig = {}
     artifacts = []  # (thread, {"s": seconds, "error": exception})
-    if want_phase:
-        with metrics.timer("phasing"):
-            outputs["phased_snps"] = _phase(cfg, bam, outputs["snps"],
-                                            contigs, metrics,
-                                            tags_by_contig, artifacts)
-    if want_indels:
-        outputs["indels"] = _call_indels(cfg, state, bam, fasta,
-                                         regions_list, contigs, exclude,
-                                         manifest, metrics, progress,
-                                         tags_by_contig)
+    if want_phase and cfg.cpu > 1:
+        # per-contig phase→indel DAG: contigs phase in workers and each
+        # contig's indel chunks start the moment it is phased
+        snp_vcf = outputs["snps"] or os.path.join(
+            cfg.output, "%s.snps.vcf.gz" % cfg.prefix)
+        with metrics.timer("phase_indel_dag"):
+            dag = _run_phase_indel_dag(
+                cfg, state, bam, snp_vcf, contigs, regions_list, manifest,
+                metrics, progress, exclude_path, want_indels, artifacts)
+        if dag["phased_files"]:
+            phased_out = os.path.join(cfg.output,
+                                      "%s.snps.phased.vcf.gz" % cfg.prefix)
+            concat(dag["phased_files"], phased_out)
+            outputs["phased_snps"] = phased_out
+        if want_indels:
+            outputs["indels"] = write_indel_vcf(
+                cfg, list(contigs), dag["chunk_lines"], cfg.output)
+    else:
+        if want_phase:
+            with metrics.timer("phasing"):
+                outputs["phased_snps"] = _phase(cfg, bam, outputs["snps"],
+                                                contigs, metrics,
+                                                tags_by_contig, artifacts)
+        if want_indels:
+            outputs["indels"] = _call_indels(cfg, state, bam, fasta,
+                                             regions_list, contigs, exclude,
+                                             exclude_path, manifest, metrics,
+                                             progress, tags_by_contig)
     if cfg.mode == "all" and outputs["phased_snps"] and outputs["indels"]:
         final = os.path.join(cfg.output, "%s.vcf.gz" % cfg.prefix)
         concat([outputs["phased_snps"], outputs["indels"]], final)
@@ -154,6 +189,8 @@ def run(cfg: Config, progress=None):
     errors = [res["error"] for _, res in artifacts if res["error"]]
     if errors:
         raise errors[0]
+    if bam.format == "CRAM":
+        metrics.count("cram.python_windows", bam.python_windows)
     if owns_progress:
         bar.close()
     metrics.dump(os.path.join(cfg.output, "metrics.json"))
@@ -173,46 +210,22 @@ def _phase(cfg, bam, snp_vcf, contigs, metrics, tags_by_contig, artifacts):
     phased_files = []
     for name, (c, s, e, ploidy) in contigs.items():
         out_vcf = os.path.join(phase_dir, "%s.snps.phased.vcf.gz" % name)
-        recs = list(snp_reader.fetch(name, s, e))
         if ploidy == "haploid":
             # no phasing for haploid contigs (indelCaller.py:193-211)
             with VcfWriter(out_vcf, snp_reader.header_lines) as w:
-                for r in recs:
+                for r in snp_reader.fetch(name, s, e):
                     w.write(r)
             phased_files.append(out_vcf)
             continue
-        # QUAL as written (%.3f), not the in-memory probability: the
-        # split is the JAX package's, on the same text
-        hiq = [r for r in recs if r.qual_value >= cfg.phase_qual_score]
-        lowq = [r for r in recs if r.qual_value < cfg.phase_qual_score]
-        with metrics.timer("phase.decode"):
-            # site-filtered decode: phasing only needs read codes at the
-            # het sites
-            het_sites = sorted(r.pos - 1 for r in hiq)
-            rw = decode_reads_parallel(bam, name, max(0, s - 1), e,
-                                       keep_seq=False, sites=het_sites)
-        with metrics.timer("phase.mec"):
-            result, phase_map = phase_contig(
-                hiq, rw, distrust=cfg.enable_whatshap,
-                cell_budget=cfg.phase_cell_budget)
-        tags = haplotag_reads(rw, result)
+        tags, files, decode_s, mec_s = phase_one_contig(
+            bam, snp_reader, name, s, e, out_vcf, os.path.join(
+                phase_dir, "%s.snps.lowq.unphased.vcf.gz" % name),
+            phase_qual_score=cfg.phase_qual_score,
+            distrust=cfg.enable_whatshap, cell_budget=cfg.phase_cell_budget)
+        metrics.timers["phase.decode"] += decode_s
+        metrics.timers["phase.mec"] += mec_s
         tags_by_contig[name] = tags
-
-        class _Recs:
-            header_lines = snp_reader.header_lines
-
-            def __iter__(self):
-                return iter(hiq)
-
-        write_phased_vcf(_Recs(), out_vcf, phase_map)
-        phased_files.append(out_vcf)
-        if lowq:
-            lowq_vcf = os.path.join(
-                phase_dir, "%s.snps.lowq.unphased.vcf.gz" % name)
-            with VcfWriter(lowq_vcf, snp_reader.header_lines) as w:
-                for r in lowq:
-                    w.write(r)
-            phased_files.append(lowq_vcf)
+        phased_files.extend(files)
         # the haplotagged BAM is a user artifact only (the indel stage
         # takes the tags in memory): written on a thread that overlaps
         # the indel stage, joined before run() returns
@@ -298,93 +311,316 @@ def write_haplotagged_bam(bam, out_path, contig, start0, end0, tags,
     return out_path
 
 
-def _call_indels(cfg, state, bam, fasta, regions_list, contigs, exclude,
-                 manifest, metrics, progress, tags_by_contig):
-    """The inline indel stage; returns the indels.vcf.gz path. A chunk's
-    reads take the haplotags its contig's phasing found (haploid contigs
-    are not phased, so theirs keep the BAM's own)."""
-    indel_chunks = get_chunks(regions_list, cfg.cpu, max_chunk_size=100000)
-    order = sorted(range(len(indel_chunks)),
-                   key=lambda i: (list(contigs).index(indel_chunks[i]["chrom"]),
-                                  indel_chunks[i]["start"]))
-    ordered_chunks = [indel_chunks[i] for i in order]
+class _IndelSink:
+    """The indel stage's end in the device owner: batches or workers' job
+    records in, each chunk's VCF lines (and manifest shard) out.
 
-    results = {}
-    todo = []
-    for idx, chunk in enumerate(ordered_chunks):
-        if manifest.is_done("indel", chunk):
-            with open(manifest.shard_path("indel", chunk)) as fh:
-                results[idx] = fh.readlines()
-            if progress:
-                progress(1)
-        else:
-            todo.append(idx)
+    add_batch (the inline --cpu 1 path) pools chunks' batches until they
+    hold _FLUSH_AT candidates, then runs one CNN pass over them.
+    add_record (--cpu N) takes a worker's job record in completion order
+    and moves it into its contig's queue in chunk order; a contig's queue
+    is finished (finish_indel_jobs: one K1 + K2 round over all its pairs,
+    timer `indel.align_finish`) and sent through the CNN once it holds
+    _FLUSH_AT jobs or the contig's last chunk. What shares a device pass
+    therefore depends on the data only, never on the order of arrival,
+    and two runs give the same bytes."""
 
-    def _inline():
-        for idx in todo:
-            chunk = ordered_chunks[idx]
-            with metrics.timer("indel.features"):
-                batch = get_indel_candidates(
-                    bam, fasta, chunk, seq_type=cfg.sequencing,
-                    mincov=cfg.mincov, maxcov=cfg.maxcov,
-                    ins_t=cfg.ins_threshold, del_t=cfg.del_threshold,
-                    win_size=cfg.win_size,
-                    small_win_size=cfg.small_win_size,
-                    impute_indel_phase=cfg.impute_indel_phase,
-                    exclude=exclude,
-                    ploidy=chunk.get("ploidy", "diploid"),
-                    tags=tags_by_contig.get(chunk["chrom"]),
-                    device=state.device)
-            yield idx, batch
+    def __init__(self, cfg, state, ordered_chunks, manifest, metrics,
+                 progress):
+        self.cfg, self.state = cfg, state
+        self.chunks = ordered_chunks
+        self.manifest, self.metrics, self.progress = manifest, metrics, \
+            progress
+        self.results = {}
+        self.todo = []
+        for idx, chunk in enumerate(ordered_chunks):
+            if manifest.is_done("indel", chunk):
+                with open(manifest.shard_path("indel", chunk)) as fh:
+                    self.results[idx] = fh.readlines()
+                if progress:
+                    progress(1)
+            else:
+                self.todo.append(idx)
+        self.pending = []  # (idx, batch) awaiting a CNN pass
+        self.pend_n = 0
+        self.queue = {}  # contig -> [pending todo idx, in chunk order]
+        for idx in self.todo:
+            self.queue.setdefault(ordered_chunks[idx]["chrom"], []).append(idx)
+        self.arrived = {}  # idx -> record, not yet in its contig's order
+        self.ready = {}  # contig -> [(idx, record)] in chunk order
 
-    def _write_shard(idx):
-        chunk = ordered_chunks[idx]
+    def _write_shard(self, idx):
+        chunk = self.chunks[idx]
         shard = os.path.join(
-            manifest.shard_dir,
+            self.manifest.shard_dir,
             "indel_%s_%d.body" % (chunk["chrom"], chunk["start"]))
         with open(shard, "w") as fh:
-            fh.writelines(results[idx])
-        manifest.mark_done("indel", chunk, shard)
-        if progress:
-            progress(1)
+            fh.writelines(self.results[idx])
+        self.manifest.mark_done("indel", chunk, shard)
+        if self.progress:
+            self.progress(1)
 
+    def add_batch(self, idx, batch):
+        self.metrics.count("indel_candidates", len(batch))
+        if len(batch) == 0:
+            self.results[idx] = []
+            self._write_shard(idx)
+            return
+        self.pending.append((idx, batch))
+        self.pend_n += len(batch)
+        if self.pend_n >= _FLUSH_AT:
+            self.flush()
+
+    def flush(self):
+        """One CNN pass over the pooled batches, then decode."""
+        haploid = lambda i: self.chunks[i].get("ploidy") == "haploid"
+        dip = [(i, b) for i, b in self.pending if not haploid(i)]
+        hap = [(i, b) for i, b in self.pending if haploid(i)]
+        with self.metrics.timer("indel.infer_decode"):
+            for probs, (i, b) in zip(
+                    infer_indel_many(self.state, [b for _, b in dip]), dip):
+                self.results[i] = decode_diploid_indels(b, probs)
+                self._write_shard(i)
+            for probs, (i, b) in zip(
+                    infer_haploid_indel_many(self.state,
+                                             [b for _, b in hap]), hap):
+                self.results[i] = decode_haploid_indels(b, probs)
+                self._write_shard(i)
+        self.pending = []
+        self.pend_n = 0
+
+    def add_record(self, idx, rec):
+        contig = self.chunks[idx]["chrom"]
+        self.arrived[idx] = rec
+        queue = self.queue[contig]
+        while queue and queue[0] in self.arrived:
+            i = queue.pop(0)
+            ready = self.ready.setdefault(contig, [])
+            ready.append((i, self.arrived.pop(i)))
+            if n_jobs([r for _, r in ready]) >= _FLUSH_AT:
+                self._finish(contig)
+        if not queue:
+            self._finish(contig)
+
+    def _finish(self, contig):
+        ready = self.ready.pop(contig, [])
+        if not ready:
+            return
+        with self.metrics.timer("indel.align_finish"):
+            batches = finish_indel_jobs([r for _, r in ready],
+                                        device=self.state.device)
+        for (idx, _), batch in zip(ready, batches):
+            self.add_batch(idx, batch)
+        self.flush()
+
+    def chunk_lines(self):
+        self.flush()
+        missing = [i for i in self.todo if i not in self.results]
+        if missing:
+            raise RuntimeError("indel chunks %s got no result" % missing[:5])
+        return [self.results[i] for i in range(len(self.chunks))]
+
+
+def _ordered_indel_chunks(cfg, regions_list, contigs):
+    """The 100 kb indel chunks in contig order, then by start."""
+    indel_chunks = get_chunks(regions_list, cfg.cpu, max_chunk_size=100000)
+    names = list(contigs)
+    return sorted(indel_chunks,
+                  key=lambda c: (names.index(c["chrom"]), c["start"]))
+
+
+def _call_indels(cfg, state, bam, fasta, regions_list, contigs, exclude,
+                 exclude_path, manifest, metrics, progress, tags_by_contig):
+    """The indel stage without the DAG; returns the indels.vcf.gz path.
+
+    --cpu 1: each chunk's candidates are built and aligned here
+    (get_indel_candidates), its reads taking the haplotags its contig's
+    phasing found (haploid contigs are not phased, so theirs keep the
+    BAM's own). --cpu N (`--mode indels`): coordinate-adjacent chunks go
+    to the feature workers in groups and their job records come back to
+    the sink; `indel.features` is this process's wait for them."""
+    ordered_chunks = _ordered_indel_chunks(cfg, regions_list, contigs)
+    sink = _IndelSink(cfg, state, ordered_chunks, manifest, metrics,
+                      progress)
     with metrics.timer("indel_calling"):
-        # accumulate chunks and run one device pass per ~flush_at
-        # candidates: 100 kb chunks carry only a handful each
-        pending = []  # (idx, batch)
-        pend_n = 0
-        flush_at = 384
-
-        def _flush():
-            nonlocal pending, pend_n
-            dip = [(i, b) for i, b in pending
-                   if ordered_chunks[i].get("ploidy") != "haploid"]
-            hap = [(i, b) for i, b in pending
-                   if ordered_chunks[i].get("ploidy") == "haploid"]
-            with metrics.timer("indel.infer_decode"):
-                for probs, (i, b) in zip(
-                        infer_indel_many(state, [b for _, b in dip]), dip):
-                    results[i] = decode_diploid_indels(b, probs)
-                    _write_shard(i)
-                for probs, (i, b) in zip(
-                        infer_haploid_indel_many(state, [b for _, b in hap]),
-                        hap):
-                    results[i] = decode_haploid_indels(b, probs)
-                    _write_shard(i)
-            pending = []
-            pend_n = 0
-
-        for idx, batch in _inline():
-            metrics.count("indel_candidates", len(batch))
-            if len(batch) == 0:
-                results[idx] = []
-                _write_shard(idx)
-                continue
-            pending.append((idx, batch))
-            pend_n += len(batch)
-            if pend_n >= flush_at:
-                _flush()
-        _flush()
+        if cfg.cpu > 1:
+            stream = feature_stream(
+                group_adjacent_chunks(ordered_chunks, sink.todo,
+                                      _INDEL_GROUP_SPAN),
+                indel_features_group_worker,
+                (cfg.bam, cfg.ref, cfg_kwargs_for_workers(cfg),
+                 exclude_path), cfg.cpu)
+            while True:
+                with metrics.timer("indel.features"):
+                    item = next(stream, None)
+                if item is None:
+                    break
+                _gi, members, secs, py_windows = item
+                if py_windows:
+                    bam.note_python_windows(py_windows)
+                metrics.timers["indel.features_core"] += secs
+                for idx, rec in members:
+                    sink.add_record(idx, rec)
+        else:
+            for idx in sink.todo:
+                chunk = ordered_chunks[idx]
+                with metrics.timer("indel.features"):
+                    batch = get_indel_candidates(
+                        bam, fasta, chunk, seq_type=cfg.sequencing,
+                        mincov=cfg.mincov, maxcov=cfg.maxcov,
+                        ins_t=cfg.ins_threshold, del_t=cfg.del_threshold,
+                        win_size=cfg.win_size,
+                        small_win_size=cfg.small_win_size,
+                        impute_indel_phase=cfg.impute_indel_phase,
+                        exclude=exclude,
+                        ploidy=chunk.get("ploidy", "diploid"),
+                        tags=tags_by_contig.get(chunk["chrom"]),
+                        device=state.device)
+                sink.add_batch(idx, batch)
+        chunk_lines = sink.chunk_lines()
     metrics.count("indel_chunks", len(ordered_chunks))
-    chunk_lines = [results.get(i, []) for i in range(len(ordered_chunks))]
     return write_indel_vcf(cfg, list(contigs), chunk_lines, cfg.output)
+
+
+def _run_phase_indel_dag(cfg, state, bam, snp_vcf, contigs, regions_list,
+                         manifest, metrics, progress, exclude_path,
+                         want_indels, artifacts):
+    """Per-contig phase→indel DAG (cfg.cpu > 1 with phasing).
+
+    Phasing fans out across the worker pool (one task per diploid
+    contig, each with a share of the trellis threads), and each contig's
+    indel chunks are submitted, in shared-decode groups, the moment that
+    contig's phasing is done, with its haplotag sidecar (tags.tsv) — the
+    reference's dual-role worker unlock (indelCaller.py:253-262,320-336).
+    A haploid contig is copied unphased and unlocked at once. A phased
+    contig's artifact is written on a thread of this process. This
+    process owns the device: the workers' job records go through the
+    _IndelSink (finish_indel_jobs on K1 + K2, then the indel CNN). A
+    stage timeline lands in metrics.json (stage_timeline).
+
+    Returns {"phased_files": [...ordered...], "chunk_lines": [...]}."""
+    from concurrent.futures import FIRST_COMPLETED, wait
+    from concurrent.futures.process import BrokenProcessPool
+
+    from .runtime.scheduler import worker_pool
+
+    t_start = time.perf_counter()
+    stamp = lambda: round(time.perf_counter() - t_start, 4)
+    timeline = []
+    phase_dir = os.path.join(cfg.output, "intermediate_phase_files")
+    os.makedirs(phase_dir, exist_ok=True)
+    phased_by_contig = {}
+    ordered_chunks = _ordered_indel_chunks(cfg, regions_list, contigs)
+    sink = _IndelSink(cfg, state, ordered_chunks, manifest, metrics,
+                      progress) if want_indels else None
+    todo_by_contig = {}
+    for idx in (sink.todo if sink else []):
+        todo_by_contig.setdefault(ordered_chunks[idx]["chrom"], []).append(idx)
+
+    snp_reader = VcfReader(snp_vcf) if os.path.exists(snp_vcf) else None
+    init_args = (cfg.bam, cfg.ref, cfg_kwargs_for_workers(cfg), exclude_path)
+    fut_meta = {}
+    pend = set()
+    ex = worker_pool(cfg.cpu, init_args)
+    try:
+        def submit(fn, arg, kind):
+            f = ex.submit(fn, arg)
+            fut_meta[f] = kind
+            pend.add(f)
+
+        def unlock_indels(contig, tags_path):
+            todo = todo_by_contig.pop(contig, [])
+            if not todo:
+                return
+            timeline.append({"stage": "indels_unlocked", "contig": contig,
+                             "n_chunks": len(todo), "t": stamp()})
+            for g in group_adjacent_chunks(ordered_chunks, todo,
+                                           _INDEL_GROUP_SPAN):
+                members = []
+                for idx, chunk in g:
+                    chunk = dict(chunk)
+                    if tags_path and chunk.get("ploidy") != "haploid":
+                        chunk["tags_path"] = tags_path
+                    members.append((idx, chunk))
+                submit(indel_features_group_worker, (members[0][0], members),
+                       "indel_group")
+
+        # trellis threads per phasing task: the diploid contigs phase
+        # side by side in the pool, so each takes a share of the cores
+        n_phase = sum(1 for (_c, _s, _e, p) in contigs.values()
+                      if p != "haploid") or 1
+        phase_threads = max(2, cfg.cpu // min(n_phase, max(cfg.cpu, 1)))
+        for name, (_c, s, e, ploidy) in contigs.items():
+            out_vcf = os.path.join(phase_dir, "%s.snps.phased.vcf.gz" % name)
+            if snp_reader is None:
+                unlock_indels(name, None)
+                continue
+            if ploidy == "haploid":
+                # no phasing for haploid contigs (indelCaller.py:193-211)
+                with VcfWriter(out_vcf, snp_reader.header_lines) as w:
+                    for r in snp_reader.fetch(name, s, e):
+                        w.write(r)
+                phased_by_contig[name] = [out_vcf]
+                unlock_indels(name, None)
+                continue
+            job = dict(
+                chrom=name, start=s, end=e, snp_vcf=snp_vcf, out_vcf=out_vcf,
+                lowq_vcf=os.path.join(
+                    phase_dir, "%s.snps.lowq.unphased.vcf.gz" % name),
+                tags_path=os.path.join(phase_dir, "%s.tags.tsv" % name),
+                phase_threads=phase_threads)
+            submit(phase_contig_worker, (0, job), "phase")
+
+        while pend:
+            done, _ = wait(pend, return_when=FIRST_COMPLETED)
+            for f in done:
+                pend.discard(f)
+                kind = fut_meta.pop(f)
+                try:
+                    res = f.result()
+                except BrokenProcessPool:
+                    raise RuntimeError(
+                        "phase/indel worker died (killed/OOM?) — completed "
+                        "chunks are in the run manifest, rerun with "
+                        "--resume")
+                if res[-1]:
+                    bam.note_python_windows(res[-1])
+                if kind == "phase":
+                    info = res[1]
+                    name = info["chrom"]
+                    phased_by_contig[name] = info["files"]
+                    metrics.timers["phasing"] += info["seconds"]
+                    metrics.timers["phase.decode"] += info["decode_s"]
+                    metrics.timers["phase.mec"] += info["mec_s"]
+                    timeline.append({"stage": "phase_done", "contig": name,
+                                     "t": stamp()})
+                    if not cfg.skip_phased_bam:
+                        _c, s, e, _p = contigs[name]
+                        artifacts.append(_start_artifact_writer(
+                            cfg, name, max(0, s - 1), e,
+                            load_tags(info["tags_path"]),
+                            _phased_path(phase_dir, name, bam.format)))
+                    unlock_indels(name, info["tags_path"])
+                else:
+                    gi, members, secs = res[0], res[1], res[2]
+                    metrics.timers["indel.features_core"] += secs
+                    if len(timeline) < 2000:
+                        timeline.append(
+                            {"stage": "indel_group_done",
+                             "contig": ordered_chunks[gi]["chrom"],
+                             "n_chunks": len(members), "t": stamp()})
+                    for idx, rec in members:
+                        sink.add_record(idx, rec)
+    finally:
+        # device or consumer errors must not wait out the queued backlog
+        ex.shutdown(wait=True, cancel_futures=True)
+
+    metrics.extra["stage_timeline"] = timeline
+    phased_files = []
+    for name in contigs:
+        phased_files.extend(phased_by_contig.get(name, []))
+    chunk_lines = None
+    if want_indels:
+        chunk_lines = sink.chunk_lines()
+        metrics.count("indel_chunks", len(ordered_chunks))
+    return {"phased_files": phased_files, "chunk_lines": chunk_lines}

@@ -65,7 +65,7 @@ class Config:
     batch_size: int = 4096
     # SNP device-path options of the JAX CLI. The port serves the group
     # payload path only: False for either raises NotImplementedError
-    # (the per-chunk and dense oracle paths are ROADMAP A2's remainder)
+    # (the per-chunk and dense oracle paths are ROADMAP A2b)
     dedup_transfer: bool = True
     snp_group_payload: bool = True
     # decode groups whose launches are queued before the oldest one's

@@ -1,8 +1,11 @@
 """CRAM 3.0 reader/writer — closes the reference's CRAM capability.
 
-A copy of nanocaller_tpu/io/cram.py on the port's own modules; its
-native window decode (below) raises where the C++ decoder refuses a
-container, where the JAX package falls back on the Python decoder.
+A copy of nanocaller_tpu/io/cram.py on the port's own modules. Its
+window decode (below) reads each container's layout before decoding
+it: a window with an encoding outside the C++ decoder's set or a
+multi-reference slice is refused, and pileup/engine decodes it with the
+Python decoder, as the JAX package does (counted in the reader's
+`python_windows`). A slice the C++ decoder fails on raises.
 
 The reference accepts BAM or CRAM input transparently through pysam/
 htslib (`nanocaller_src/generate_SNP_pileups.py:134`,
@@ -1142,6 +1145,23 @@ class CramReader:
         idx = index_path or path + ".crai"
         if os.path.exists(idx):
             self._index = read_crai(idx)
+        # decodes of this file's windows that the Python decoder took (a
+        # layout the native decoder does not implement; see
+        # _cram_decode_window), and whether the first prints a warning
+        self.python_windows = 0
+        self.warn_python_windows = True
+
+    def note_python_windows(self, n):
+        """Count n window decodes made by the Python decoder; the first
+        prints one warning line for the file."""
+        if n and not self.python_windows and self.warn_python_windows:
+            import sys
+
+            print("warning: %s uses a CRAM layout the native decoder does "
+                  "not implement (an encoding outside its set or a "
+                  "multi-reference slice); those windows are decoded by the "
+                  "Python decoder" % self.path, file=sys.stderr, flush=True)
+        self.python_windows += n
 
     # BamReader-compatible helpers
     def is_valid_reference_name(self, name):
@@ -1676,18 +1696,21 @@ def _native_spec(comp: CompressionHeader):
 def _cram_decode_window(reader: "CramReader", contig, start, end,
                         flag_exclude, keep_seq=False, sites=None,
                         counts_only=False):
-    """Native window decode over a CramReader → Window-dict (same layout
-    as io.native.decode_window_native).
+    """Window decode over a CramReader → Window-dict (same layout as
+    io.native.decode_window_native), or None for a window whose layout
+    the C++ decoder does not implement.
 
     counts_only: accumulate per-column counts + read metadata without
     materializing per-base event arrays (phase 1 of the two-phase SNP
     path; the caller re-decodes with `sites` once candidates are known).
 
-    Raises ValueError where the C++ decoder refuses a container: a
-    corrupt slice, or a layout it does not implement (a multi-reference
-    slice, an encoding outside its set). The JAX package hands such a
-    window to its Python decoder; the port runs that decoder only when
-    asked (pileup.engine.decode_reads(use_native=False)).
+    Each container's layout is read from its headers before any of it
+    reaches the C++ decoder: a compression header with an encoding
+    outside the decoder's set (_native_spec gives None) or a
+    multi-reference slice refuses the window, and the caller
+    (pileup/engine) decodes it with the Python decoder, as the JAX
+    package does. A slice the C++ decoder fails on (corrupt data) raises
+    ValueError.
     """
     from .native import (cram_window_begin, cram_window_feed,
                          cram_window_finish, cram_window_free)
@@ -1705,19 +1728,15 @@ def _cram_decode_window(reader: "CramReader", contig, start, end,
     try:
         for ch, data in reader._iter_containers(rid, start, end):
             comp_blk, _ = Block.parse(data, 0)
-            comp = CompressionHeader.parse(comp_blk.data)
-            spec = _native_spec(comp)
-            if spec is None:
-                raise ValueError(
-                    "%s: a CRAM container uses an encoding the native "
-                    "decoder does not implement" % reader.path)
+            spec = _native_spec(CompressionHeader.parse(comp_blk.data))
+            slices = []
             for lm in ch.landmarks:
                 sh_blk, p = Block.parse(data, lm)
-                sh = SliceHeader.parse(sh_blk.data)
-                if sh.ref_id == -2:
-                    raise ValueError(
-                        "%s: multi-reference CRAM slices are not decoded "
-                        "natively" % reader.path)
+                slices.append((SliceHeader.parse(sh_blk.data), p))
+            if spec is None or any(sh.ref_id == -2 for sh, _ in slices):
+                cram_window_free(lib, handle)
+                return None
+            for sh, p in slices:
                 ext = []
                 core = b""
                 for _ in range(sh.n_blocks):
@@ -1739,9 +1758,9 @@ def _cram_decode_window(reader: "CramReader", contig, start, end,
                         sh.record_counter, rid, start, end, flag_exclude,
                         keep_seq, sites):
                     raise ValueError(
-                        "%s: the native decoder refused a CRAM slice at "
-                        "%s:%d (corrupt data or an unsupported layout)"
-                        % (reader.path, contig, sh.start))
+                        "%s: the native decoder failed on a CRAM slice at "
+                        "%s:%d (corrupt data)" % (reader.path, contig,
+                                                  sh.start))
     except BaseException:
         cram_window_free(lib, handle)
         raise

@@ -16,7 +16,8 @@ vectorized reductions (column_counts, site_read_codes, SiteCodes).
 
 A copy of nanocaller_tpu/pileup/engine.py. The decode runs the port's C++
 library (io/native) for BAM and CRAM; the numpy decode below is its
-oracle, reached only with decode_reads(use_native=False).
+oracle (decode_reads(use_native=False)), and decodes a CRAM window whose
+layout the C++ decoder does not implement.
 """
 
 from __future__ import annotations
@@ -95,19 +96,24 @@ def decode_reads(bam, contig, start, end, flag_exclude=None, keep_seq=False,
 
     Runs the C++ decoder of io/native (BAM, or CRAM through the reader's
     decode_window); use_native=False runs the numpy decode below, its
-    bit-identical oracle.
+    bit-identical oracle. A CRAM window whose layout the C++ decoder
+    does not implement (decode_window gives None) takes the numpy decode
+    over the Python CRAM decoder, counted in the reader's
+    python_windows.
     """
     if flag_exclude is None:
         flag_exclude = DEFAULT_FLAG_FILTER
-    if use_native:
-        if bam.format == "CRAM":
-            raw = bam.decode_window(contig, start, end, flag_exclude,
-                                    keep_seq, sites)
-        else:
-            from ..io.native import decode_window_native
+    if use_native and bam.format == "CRAM":
+        raw = bam.decode_window(contig, start, end, flag_exclude, keep_seq,
+                                sites)
+        if raw is not None:
+            return _window_from_native(raw, contig, start, end)
+        bam.note_python_windows(1)
+    elif use_native:
+        from ..io.native import decode_window_native
 
-            raw = decode_window_native(bam, contig, start, end, flag_exclude,
-                                       keep_seq, sites=sites)
+        raw = decode_window_native(bam, contig, start, end, flag_exclude,
+                                   keep_seq, sites=sites)
         return _window_from_native(raw, contig, start, end)
     if sites is not None:
         sites = np.asarray(sites, dtype=np.int64)
@@ -324,10 +330,8 @@ class CramDeferredWindow:
         return self._counts[start - self.start : end - self.start]
 
     def finish(self, sites) -> "ReadWindow":
-        raw = self._bam.decode_window(self.contig, self.start, self.end,
-                                      self._flagx, False,
-                                      np.asarray(sites, dtype=np.int64))
-        return _window_from_native(raw, self.contig, self.start, self.end)
+        return decode_reads(self._bam, self.contig, self.start, self.end,
+                            self._flagx, sites=np.asarray(sites, np.int64))
 
     def close(self):
         pass
@@ -335,12 +339,17 @@ class CramDeferredWindow:
 
 def deferred_decode(bam, contig, start, end, flag_exclude=None):
     """Start a deferred (counts-first) native decode of a BAM (record
-    bytes stashed in the handle) or a CRAM (a counts-only first pass)."""
+    bytes stashed in the handle) or a CRAM (a counts-only first pass).
+    None for a CRAM window whose layout the C++ decoder does not
+    implement: the caller decodes it with decode_reads, as the JAX
+    package does."""
     if flag_exclude is None:
         flag_exclude = DEFAULT_FLAG_FILTER
     if bam.format == "CRAM":
         raw = bam.decode_window(contig, start, end, flag_exclude, False,
                                 None, counts_only=True)
+        if raw is None:
+            return None
         counts = raw.get("counts", np.zeros((0, N_COUNT_CH), np.int32))
         _check_counts(counts, start, end)
         return CramDeferredWindow(bam, counts, contig, start, end,

@@ -24,6 +24,12 @@ Semantics notes (cites into /root/reference/nanocaller_src/):
 - --impute_indel_phase allele-clustering pseudo-phasing (:278-304)
 - ref base validity: uppercase AGTC else 'N'; windows containing N are
   skipped (:174,327-328)
+
+Pass 2 is split at the alignments: collect_msa_jobs runs on the host
+without torch (what the `--cpu N` feature workers run, per chunk or per
+shared-decode group) and returns picklable job records; finish_indel_jobs
+runs in the process that owns the device and aligns the pairs of any
+number of records in one K1 + K2 round per alignment kind.
 """
 
 from __future__ import annotations
@@ -458,9 +464,41 @@ def get_indel_candidates(bam, fasta, chunk, *, seq_type="ont", mincov=4,
                          small_win_size=4, impute_indel_phase=False,
                          exclude=None, ploidy="diploid", rw=None, tags=None,
                          device="cuda"):
-    """Full indel feature generation for one chunk (1-based chunk coords).
+    """Full indel feature generation for one chunk (1-based chunk coords):
+    collect_chunk_jobs on the host, then finish_indel_jobs on `device`.
 
     Diploid returns IndelBatch; haploid returns HaploidIndelBatch.
+    All read-vs-ref MSA alignments and consensus-vs-ref allele
+    alignments of the chunk go through the port's BatchAligner on
+    `device` (kernels K1 + K2 on "cuda", their plain twins on "cpu");
+    cigars are identical to nw.nw_align's.
+    """
+    rec = collect_chunk_jobs(
+        bam, fasta, chunk, seq_type=seq_type, mincov=mincov, maxcov=maxcov,
+        ins_t=ins_t, del_t=del_t, win_size=win_size,
+        small_win_size=small_win_size,
+        impute_indel_phase=impute_indel_phase, exclude=exclude,
+        ploidy=ploidy, rw=rw, tags=tags)
+    return finish_indel_jobs([rec], device=device)[0]
+
+
+def _inject_tags(rw, tags):
+    """Set the reads' HP/PS from {qname: (hp, ps)}; a read absent from
+    it keeps the input's own tags."""
+    if tags:
+        for rid_, qname in enumerate(rw.qnames):
+            t = tags.get(qname)
+            if t is not None:
+                rw.hp[rid_] = t[0]
+                rw.ps[rid_] = t[1]
+
+
+def collect_chunk_jobs(bam, fasta, chunk, *, seq_type="ont", mincov=4,
+                       maxcov=160, ins_t=0.4, del_t=0.6, win_size=40,
+                       small_win_size=4, impute_indel_phase=False,
+                       exclude=None, ploidy="diploid", rw=None, tags=None):
+    """The host half of get_indel_candidates for one chunk: decode, scan
+    and collect_msa_jobs. Returns its picklable job record.
 
     When rw is None and the input is a BAM, the decode runs in two native
     phases (engine.indel_deferred_decode): the scan needs no aligned-base
@@ -469,12 +507,8 @@ def get_indel_candidates(bam, fasta, chunk, *, seq_type="ont", mincov=4,
     record store on demand. A CRAM is decoded in one native pass
     (engine.decode_reads).
     tags: optional {qname: (hp, ps)} haplotags injected right after the
-    decode (the phase→indel handoff in memory, in place of a phased-BAM
-    round trip); a read absent from it keeps the BAM's own HP/PS.
-    All read-vs-ref MSA alignments and consensus-vs-ref allele
-    alignments of the chunk go through the port's BatchAligner on
-    `device` (kernels K1 + K2 on "cuda", their plain twins on "cpu");
-    cigars are identical to nw.nw_align's.
+    decode (the phase→indel handoff, in place of a phased-BAM round
+    trip); a read absent from it keeps the BAM's own HP/PS.
     """
     contig = chunk["chrom"]
     start0 = chunk["start"] - 1
@@ -488,12 +522,7 @@ def get_indel_candidates(bam, fasta, chunk, *, seq_type="ont", mincov=4,
             rw = deferred.window
         else:
             rw = decode_reads(bam, contig, scan_lo, end0, keep_seq=True)
-    if tags:
-        for rid_, qname in enumerate(rw.qnames):
-            t = tags.get(qname)
-            if t is not None:
-                rw.hp[rid_] = t[0]
-                rw.ps[rid_] = t[1]
+    _inject_tags(rw, tags)
     chrom_len = fasta.get_reference_length(contig)
 
     scan_cols = np.arange(start0, end0, dtype=np.int64)
@@ -516,36 +545,160 @@ def get_indel_candidates(bam, fasta, chunk, *, seq_type="ont", mincov=4,
         sig_provider=None if haploid else cview.signature_groups)
 
     try:
-        return _tensorize_candidates(
+        return collect_msa_jobs(
             rw, cview, variants, extra, fasta, contig, chrom_len, scan_lo,
             window_after=window_after, win_size=win_size, mincov=mincov,
-            maxcov=maxcov, haploid=haploid, device=device)
+            maxcov=maxcov, haploid=haploid)
     finally:
         # frees the C++ record store backing rw.seq_provider
         if deferred is not None:
             deferred.close()
 
 
-def _tensorize_candidates(rw, cview, variants, extra, fasta, contig,
-                          chrom_len, scan_lo, *, window_after, win_size,
-                          mincov, maxcov, haploid, device="cuda"):
-    """Pass 2: MSA + NW + tensor assembly for the selected candidates."""
+def _member_indel_window(rw_g: ReadWindow, contig, m_lo, m_hi):
+    """Restrict a group-decoded phase-1 indel window (metadata + seqs +
+    ins/del events, no aligned events yet) to the reads overlapping
+    [m_lo, m_hi), remapping ids to the member-local position-ordered
+    space — the exact read set and order a standalone decode of that
+    window accepts. Returns (rw_member, mask)."""
+    mask = (rw_g.read_start < m_hi) & (rw_g.read_end > m_lo)
+    sel = np.flatnonzero(mask)
+    g2l = np.cumsum(mask) - 1
+    dm = mask[rw_g.del_rid] if len(rw_g.del_rid) else np.zeros(0, bool)
+    im = mask[rw_g.ins_rid] if len(rw_g.ins_rid) else np.zeros(0, bool)
+    z32 = np.zeros(0, np.int32)
+    return ReadWindow(
+        contig=contig, start=m_lo, end=m_hi,
+        qnames=[rw_g.qnames[i] for i in sel],
+        flags=rw_g.flags[sel], strand=rw_g.strand[sel],
+        read_start=rw_g.read_start[sel], read_end=rw_g.read_end[sel],
+        hp=rw_g.hp[sel].copy(), ps=rw_g.ps[sel].copy(),
+        ev_rid=z32, ev_pos=z32.copy(), ev_code=np.zeros(0, np.int8),
+        ev_qpos=z32.copy(),
+        del_rid=g2l[rw_g.del_rid[dm]].astype(np.int32),
+        del_start=rw_g.del_start[dm], del_len=rw_g.del_len[dm],
+        ins_rid=g2l[rw_g.ins_rid[im]].astype(np.int32),
+        ins_pos=rw_g.ins_pos[im], ins_len=rw_g.ins_len[im],
+        seqs=[rw_g.seqs[i] for i in sel] if rw_g.seqs else [],
+        seq_provider=(
+            (lambda rids, qs, win, _p=rw_g.seq_provider, _sel=sel:
+             _p(_sel[np.asarray(rids, np.int64)], qs, win))
+            if rw_g.seq_provider is not None else None)), mask
+
+
+def _fill_member_events(rw_g: ReadWindow, rw_m: ReadWindow, mask, cols):
+    """Slice the group's emitted pseudo-events down to one member's
+    columns + reads (ids remapped). A read covering a member column
+    necessarily overlaps the member window, so this reproduces exactly
+    what a standalone member emit would produce, in the same
+    (rid, col) order."""
+    g2l = np.cumsum(mask) - 1
+    if cols and len(rw_g.ev_pos):
+        cols_arr = np.asarray(sorted(cols), np.int64)
+        idx = np.searchsorted(cols_arr, rw_g.ev_pos)
+        hit = idx < len(cols_arr)
+        hit[hit] = cols_arr[idx[hit]] == rw_g.ev_pos[hit]
+        hit &= mask[rw_g.ev_rid]
+        rw_m.ev_rid = g2l[rw_g.ev_rid[hit]].astype(np.int32)
+        rw_m.ev_pos = rw_g.ev_pos[hit]
+        rw_m.ev_code = rw_g.ev_code[hit]
+        rw_m.ev_qpos = rw_g.ev_qpos[hit]
+    rw_m.emitted_cols = frozenset(int(c) for c in cols)
+
+
+def get_indel_group_candidates(bam, fasta, members, *, seq_type="ont",
+                               mincov=4, maxcov=160, ins_t=0.4, del_t=0.6,
+                               win_size=40, small_win_size=4,
+                               impute_indel_phase=False, exclude=None,
+                               tags=None):
+    """Shared-decode indel job collection for coordinate-adjacent chunks
+    (same contig), on the host only: one deferred decode + ONE
+    pseudo-event emit serve the whole group; each member is then scanned
+    over exactly its own window with a member-local read-id space, so
+    finish_indel_jobs makes every member's batch element-identical to
+    get_indel_candidates run chunk by chunk. A CRAM input (no two-phase
+    indel decode) goes member by member (collect_chunk_jobs).
+
+    Returns the members' job records (collect_msa_jobs), aligned with
+    members (per-member 'ploidy' respected); nothing is aligned here."""
+    contig = members[0]["chrom"]
+    spans = [(max(0, m["start"] - 1 - 10 - win_size), m["end"])
+             for m in members]
+    g_lo = min(s for s, _ in spans)
+    g_end = max(e for _, e in spans)
+    dd = indel_deferred_decode(bam, contig, g_lo, g_end)
+    if dd is None:
+        return [collect_chunk_jobs(
+            bam, fasta, m, seq_type=seq_type, mincov=mincov, maxcov=maxcov,
+            ins_t=ins_t, del_t=del_t, win_size=win_size,
+            small_win_size=small_win_size,
+            impute_indel_phase=impute_indel_phase, exclude=exclude,
+            ploidy=m.get("ploidy", "diploid"), tags=tags)
+            for m in members]
+    rw_g = dd.window
+    _inject_tags(rw_g, tags)
+    chrom_len = fasta.get_reference_length(contig)
+    window_after = 260 if seq_type == "pacbio" else 160
+
+    prepped = []
+    all_cols = set()
+    for m, (m_lo, m_end) in zip(members, spans):
+        start0 = m["start"] - 1
+        haploid = m.get("ploidy", "diploid") == "haploid"
+        rw_m, mask = _member_indel_window(rw_g, contig, m_lo, m_end)
+        scan_cols = np.arange(start0, m_end, dtype=np.int64)
+        if exclude is not None:
+            scan_cols = scan_cols[~exclude.mask(contig, scan_cols)]
+        if len(scan_cols):
+            triggers = _compute_triggers(
+                rw_m, scan_cols, win_size=win_size,
+                small_win_size=small_win_size, mincov=mincov, ins_t=ins_t,
+                del_t=del_t,
+                impute_indel_phase=impute_indel_phase and not haploid,
+                haploid=haploid)
+        else:
+            triggers = (np.zeros(0, bool), np.zeros(0, bool),
+                        np.zeros(0, bool))
+        cols = _event_columns_needed(scan_cols, triggers, win_size)
+        all_cols.update(cols)
+        prepped.append((m_lo, haploid, rw_m, mask, scan_cols, triggers,
+                        cols))
+
+    dd.finish_events(all_cols)  # ONE emit for the whole group
+
+    try:
+        out = []
+        for m_lo, haploid, rw_m, mask, scan_cols, triggers, cols in prepped:
+            _fill_member_events(rw_g, rw_m, mask, cols)
+            cview = _ColumnView(rw_m)
+            variants, extra = _select_candidates(
+                rw_m, scan_cols, triggers, win_size, mincov,
+                sig_provider=None if haploid else cview.signature_groups)
+            out.append(collect_msa_jobs(
+                rw_m, cview, variants, extra, fasta, contig, chrom_len, m_lo,
+                window_after=window_after, win_size=win_size, mincov=mincov,
+                maxcov=maxcov, haploid=haploid))
+        return out
+    finally:
+        dd.close()  # frees the C++ record store backing seq_provider
+
+
+def collect_msa_jobs(rw, cview, variants, extra, fasta, contig, chrom_len,
+                     scan_lo, *, window_after, win_size, mincov, maxcov,
+                     haploid):
+    """Pass 2, phase A, on the host (no torch): per selected candidate,
+    the reads' windows cut at the candidate, sampled by msa_sample per
+    haplotype group, and the reference window.
+
+    Returns the picklable job record finish_indel_jobs takes: {"contig",
+    "haploid", "mincov", "jobs": [{"v1", "mr", "ref", "seqs", "ps"}]}."""
     max_range = {0: max(10, win_size), 1: 10}
     hap1_set = set(np.flatnonzero(rw.hp == 1).tolist())
     hap2_set = set(np.flatnonzero(rw.hp == 2).tolist())
 
-    from ..align.batch_nw import BatchAligner
-    from ..align.msa import (MSA_GAP_EXTEND, MSA_GAP_OPEN, MSA_MATCH,
-                             MSA_MISMATCH, msa_sample, star_msa_from_cigars)
+    from ..align.msa import msa_sample
 
-    aligner_msa = BatchAligner(match=MSA_MATCH, mismatch=MSA_MISMATCH,
-                               gap_open=MSA_GAP_OPEN,
-                               gap_extend=MSA_GAP_EXTEND, device=device)
-    aligner_allele = BatchAligner(device=device)
-
-    # phase A: collect MSA jobs (window extraction + sampling)
     group_keys = ("tot",) if haploid else ("h0", "h1", "tot")
-    group_mincov = {"h0": 2, "h1": 2, "tot": mincov}
     jobs = []
     for v0 in sorted(variants):
         if v0 < scan_lo:
@@ -574,35 +727,72 @@ def _tensorize_candidates(rw, cview, variants, extra, fasta, contig,
             first_h0_rid is not None and rw.ps[first_h0_rid] >= 0) else None
         jobs.append({"v1": v1, "mr": max_range[variants[v0]],
                      "ref": ref_win, "seqs": seqs_by_group, "ps": ps})
+    return {"contig": contig, "haploid": haploid, "mincov": mincov,
+            "jobs": jobs}
 
-    # round 1: all read-vs-ref alignments in one device sweep
-    pairs = [(s, job["ref"]) for job in jobs
-             for key in group_keys for s in job["seqs"][key]]
-    flat_cigars = iter(aligner_msa.align_many(pairs))
-    msa_cigars = [
-        {key: [next(flat_cigars) for _ in job["seqs"][key]]
-         for key in group_keys}
-        for job in jobs]
+
+def n_jobs(records):
+    """Candidates (MSA jobs) in a list of job records."""
+    return sum(len(r["jobs"]) for r in records)
+
+
+def finish_indel_jobs(records, device="cuda"):
+    """Pass 2 after phase A, in the process that owns the device, for
+    the job records of any number of chunks (collect_msa_jobs).
+
+    Round 1 aligns the read-vs-ref pairs of every record in one
+    BatchAligner.align_many call (K1 + K2 on "cuda", their plain twins on
+    "cpu"); then the MSA projection and consensus of each job; round 2
+    aligns every record's consensus-vs-ref allele pairs in one call; then
+    the allele prediction and the tensors. A pair's cigar does not depend
+    on the pairs it shares a launch with, so each record's batch equals
+    the one it would get alone. Returns one IndelBatch (HaploidIndelBatch
+    for a haploid record) per record."""
+    from ..align.batch_nw import BatchAligner
+    from ..align.msa import (MSA_GAP_EXTEND, MSA_GAP_OPEN, MSA_MATCH,
+                             MSA_MISMATCH, star_msa_from_cigars)
+
+    keys_of = lambda rec: ("tot",) if rec["haploid"] else ("h0", "h1", "tot")
+
+    # round 1: every record's read-vs-ref alignments in one device sweep
+    pairs = [(s, job["ref"]) for rec in records for job in rec["jobs"]
+             for key in keys_of(rec) for s in job["seqs"][key]]
+    flat = iter(BatchAligner(match=MSA_MATCH, mismatch=MSA_MISMATCH,
+                             gap_open=MSA_GAP_OPEN, gap_extend=MSA_GAP_EXTEND,
+                             device=device).align_many(pairs))
 
     # column projection + consensus per job, then round 2: allele NW
+    per_rec = []
+    allele_pairs = []
+    for rec in records:
+        keys = keys_of(rec)
+        group_mincov = {"h0": 2, "h1": 2, "tot": rec["mincov"]}
+        per_job = []
+        for job in rec["jobs"]:
+            res = {}
+            for key in keys:
+                cig = [next(flat) for _ in job["seqs"][key]]
+                res[key] = star_msa_from_cigars(
+                    job["seqs"][key], cig, job["ref"], group_mincov[key])
+            ok = all(res[key][0] for key in keys)
+            per_job.append((job, res, ok))
+            if ok:
+                for key in keys:
+                    _, _, _, cns, ref_d = res[key]
+                    allele_pairs.append((cns, ref_d))
+        per_rec.append(per_job)
+    allele_cigars = iter(BatchAligner(device=device).align_many(
+        [(a or "", b or "") for a, b in allele_pairs]))
+    return [_assemble_batch(rec, per_job, keys_of(rec), allele_cigars)
+            for rec, per_job in zip(records, per_rec)]
+
+
+def _assemble_batch(rec, per_job, group_keys, allele_cigars):
+    """Allele prediction and tensor assembly of one record's jobs; takes
+    its allele cigars from the shared iterator, in job order."""
+    haploid = rec["haploid"]
     out_pos, out_x0, out_x1, out_x2, out_alleles, out_phase = [], [], [], [], [], []
     hap_out_x, hap_out_alleles = [], []
-    per_job = []
-    allele_pairs = []
-    for job, cig in zip(jobs, msa_cigars):
-        res = {}
-        for key in group_keys:
-            res[key] = star_msa_from_cigars(
-                job["seqs"][key], cig[key], job["ref"], group_mincov[key])
-        ok = all(res[key][0] for key in group_keys)
-        per_job.append((job, res, ok))
-        if ok:
-            for key in group_keys:
-                _, _, _, cns, ref_d = res[key]
-                allele_pairs.append((cns, ref_d))
-    allele_cigars = iter(aligner_allele.align_many(
-        [(a or "", b or "") for a, b in allele_pairs]))
-
     for job, res, ok in per_job:
         if not ok:
             continue
@@ -624,6 +814,7 @@ def _tensorize_candidates(rw, cview, variants, extra, fasta, contig,
             out_phase.append(job["ps"])
             out_alleles.append((preds["h0"], preds["h1"], preds["tot"]))
 
+    contig = rec["contig"]
     if haploid:
         x = np.stack(hap_out_x) if hap_out_x else np.zeros((0, 5, 128, 2), np.float32)
         return HaploidIndelBatch(contig=contig, pos=out_pos, x=x,

@@ -33,7 +33,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .engine import ReadWindow, SiteCodes, deferred_decode
+from .engine import (ReadWindow, SiteCodes, column_counts, decode_reads,
+                     deferred_decode)
 
 NBR_SIZE = 20
 WIDTH = 2 * NBR_SIZE + 1  # 41
@@ -382,10 +383,15 @@ def _scan_group(
     g_hi = max(m["end"] for m in members) + SNP_HALO
 
     dd = deferred_decode(bam, contig, g_lo, g_hi)
+    rw_g = None
     ref_str = fasta.fetch(contig, g_lo, g_hi)
     g_hi = min(g_hi, g_lo + len(ref_str))
     ref_codes_g = REF_CODE_LUT[np.frombuffer(ref_str.encode(), dtype=np.uint8)]
-    counts_g = dd.counts(g_lo, g_hi)
+    if dd is not None:
+        counts_g = dd.counts(g_lo, g_hi)
+    else:  # a CRAM layout the C++ decoder does not implement
+        rw_g = decode_reads(bam, contig, g_lo, g_hi)
+        counts_g = column_counts(rw_g, g_lo, g_hi)
 
     p1s = []
     site_parts = []
@@ -407,9 +413,11 @@ def _scan_group(
 
     windows = [(m_lo, m_hi) for m_lo, m_hi, _, _ in p1s]
     if not site_parts:
-        dd.close()
+        if dd is not None:
+            dd.close()
         return [None] * len(members), None, ref_codes_g, g_lo, windows
-    rw_g = dd.finish(np.unique(np.concatenate(site_parts)))
+    if dd is not None:
+        rw_g = dd.finish(np.unique(np.concatenate(site_parts)))
 
     out = []
     for m_lo, m_hi, ref_m, p1 in p1s:

@@ -232,6 +232,28 @@ def write_bam(path, contig, contig_len, reads, tags_by_name=None, mapq=60,
     return path
 
 
+def _plant(ref, snp_every, indel_every, hom_only=False):
+    """A SNP every `snp_every` bp (het1, het2, hom in turn, or all hom;
+    the alt never the ref base) and, unless hom_only, a 1-6 bp insertion
+    or deletion every `indel_every` bp, away from the SNPs."""
+    length = len(ref)
+    gts = ("hom",) * 3 if hom_only else ("het1", "het2", "hom")
+    snps = []
+    for k, p in enumerate(range(snp_every // 2, length - snp_every // 2,
+                                snp_every)):
+        alt = BASES[(BASES.index(ref[p]) + 1 + k % 3) % 4]
+        snps.append((p, alt, gts[k % 3]))
+    indels = []
+    if not hom_only:
+        for k, p in enumerate(range(indel_every // 2 + snp_every // 4,
+                                    length - indel_every // 2, indel_every)):
+            if k % 2:
+                indels.append((p, "del", 1 + k % 6, gts[k % 3]))
+            else:
+                indels.append((p, "ins", "ACGTTG"[: 1 + k % 6], gts[k % 3]))
+    return snps, indels
+
+
 def write_all_fixture(out_dir, length, seed, snp_every=1000,
                       indel_every=5000, depth=30, read_len=8000,
                       error_rate=0.03, indel_error_rate=0.01,
@@ -249,19 +271,7 @@ def write_all_fixture(out_dir, length, seed, snp_every=1000,
 
     rng = np.random.default_rng(seed)
     ref = random_seq(rng, length)
-    gts = ("het1", "het2", "hom")
-    snps = []
-    for k, p in enumerate(range(snp_every // 2, length - snp_every // 2,
-                                snp_every)):
-        alt = BASES[(BASES.index(ref[p]) + 1 + k % 3) % 4]
-        snps.append((p, alt, gts[k % 3]))
-    indels = []
-    for k, p in enumerate(range(indel_every // 2 + snp_every // 4,
-                                length - indel_every // 2, indel_every)):
-        if k % 2:
-            indels.append((p, "del", 1 + k % 6, gts[k % 3]))
-        else:
-            indels.append((p, "ins", "ACGTTG"[: 1 + k % 6], gts[k % 3]))
+    snps, indels = _plant(ref, snp_every, indel_every)
     reads = make_diploid_readset(rng, ref, snps=snps, indels=indels,
                                  depth=depth, read_len=read_len,
                                  error_rate=error_rate,
@@ -271,6 +281,43 @@ def write_all_fixture(out_dir, length, seed, snp_every=1000,
     write_fasta(fasta_p, {contig: ref})
     write_bam(bam_p, contig, length, reads)
     return fasta_p, bam_p, snps, indels, len(reads)
+
+
+def write_contigs_fixture(out_dir, contigs, depth=30, read_len=8000,
+                          error_rate=0.03, indel_error_rate=0.01):
+    """write_all_fixture over several contigs in one FASTA and one
+    UNTAGGED BAM. contigs: [(name, length, seed, snp_every, indel_every,
+    hom_only)], in header order; each contig is planted as
+    write_all_fixture plants one (hom_only: hom SNPs and no indel, as a
+    haploid chrX gets), from its own seed. Returns (fasta path, bam path,
+    {name: (snps, indels)}, number of reads)."""
+    import os
+
+    from .io.fasta import write_fasta
+
+    seqs, planted, recs = {}, {}, []
+    for ci, (name, length, seed, snp_every, indel_every, hom_only) in \
+            enumerate(contigs):
+        rng = np.random.default_rng(seed)
+        seqs[name] = random_seq(rng, length)
+        snps, indels = _plant(seqs[name], snp_every, indel_every, hom_only)
+        planted[name] = (snps, indels)
+        for qname, pos, seq, cigar, _hap in make_diploid_readset(
+                rng, seqs[name], snps=snps, indels=indels, depth=depth,
+                read_len=read_len, error_rate=error_rate,
+                indel_error_rate=indel_error_rate):
+            recs.append(AlignedRead(
+                "%s_%s" % (name, qname), 0, ci, pos, 60,
+                [(_CIGAR_OP_NUM[op], n) for op, n in cigar], seq,
+                np.full(len(seq), 30, np.uint8), {}))
+    recs.sort(key=lambda r: (r.ref_id, r.pos))
+    fasta_p = os.path.join(out_dir, "contigs_ref.fa")
+    bam_p = os.path.join(out_dir, "contigs_reads.bam")
+    write_fasta(fasta_p, seqs)
+    with BamWriter(bam_p, list(seqs), [len(x) for x in seqs.values()]) as w:
+        for r in recs:
+            w.write(r)
+    return fasta_p, bam_p, planted, len(recs)
 
 
 TIE_KINDS = ("homopolymer", "str", "identical")

@@ -29,7 +29,6 @@ from .io.vcf import VcfWriter, standard_snp_header, view_filter
 from .models import (HaploidSNPModel, SNPModel, load_model,
                      torch_state_dict_from_params)
 from .models.registry import HAPLOID_TRAIN_COVERAGE
-from .pileup.snp_features import get_snp_group_payloads
 from .pileup.snp_pileup import group_wire, site_depth, snp_pileup
 from .runtime.chunker import group_adjacent_chunks
 from .runtime.device import resolve_device
@@ -286,7 +285,7 @@ def _group_adjacent(ordered_chunks, todo, cfg):
     if span_cap <= -1:
         raise NotImplementedError(
             "snp_group_span <= -1 (the per-chunk SNP path) is not ported "
-            "yet: ROADMAP A2 (SNP fallbacks, kernels B6)")
+            "yet: ROADMAP A2b (kernels B6)")
     if span_cap == 0:
         total = sum(c["end"] - c["start"] + 1 for c in ordered_chunks)
         span_cap = max(500_000,
@@ -300,20 +299,31 @@ def _check_supported(cfg):
         if not on:
             raise NotImplementedError(
                 "%s=False (the per-chunk / dense SNP oracle paths) is not "
-                "ported yet: ROADMAP A2 (SNP fallbacks, kernels B6)" % flag)
+                "ported yet: ROADMAP A2b (kernels B6)" % flag)
 
 
-def call_snps(cfg, bam, fasta, regions_list, chunks, out_dir, exclude=None,
-              progress=None, manifest=None, metrics=None):
+def call_snps(cfg, bam, regions_list, chunks, out_dir, progress=None,
+              manifest=None, metrics=None, exclude_path=None):
     """Run SNP calling over all chunks; write unfiltered + PASS VCFs.
 
-    Inline for --cpu 1: each decode group's payload is built on the host,
-    then inferred on the device with up to cfg.snp_pipeline_depth groups
-    in flight (a group's device→host copy and decode wait until the next
-    group's features are built and its launches queued). With a
-    RunManifest, completed chunks are reloaded from their shard files.
-    Returns the PASS VCF path (snpCaller.py:287)."""
+    Each decode group's payloads are built on the host by
+    runtime/workers.snp_features_group_worker from cfg.bam, cfg.ref and
+    exclude_path: inline at --cpu 1, by cfg.cpu feature workers
+    otherwise, in completion order (runtime/scheduler.feature_stream).
+    The CRAM windows those decodes gave the Python decoder are added to
+    `bam`'s count (the main process's reader). This process infers
+    them on the device with up to cfg.snp_pipeline_depth groups in
+    flight (a group's device→host copy and decode wait until the next
+    group's launches are queued); lines are stored by chunk index, so
+    the order of arrival changes nothing. With a RunManifest, completed
+    chunks are reloaded from their shard files. The `snp.features` timer
+    is this process's wait for the next group's payloads. Returns the
+    PASS VCF path (snpCaller.py:287)."""
     from contextlib import nullcontext
+
+    from .runtime.scheduler import feature_stream
+    from .runtime.workers import (cfg_kwargs_for_workers,
+                                  snp_features_group_worker)
 
     _check_supported(cfg)
     state = SnpCallerState.create(cfg.snp_model, device=cfg.device)
@@ -362,18 +372,21 @@ def call_snps(cfg, bam, fasta, regions_list, chunks, out_dir, exclude=None,
             else:
                 _store(oi, decode_diploid(sec, probs))
 
-    kw = dict(seq_type=cfg.sequencing, mincov=cfg.mincov, maxcov=cfg.maxcov,
-              min_allele_freq=cfg.min_allele_freq,
-              min_nbr_sites=cfg.min_nbr_sites, threshold=cfg.threshold,
-              exclude=exclude)
-    for group in _group_adjacent(ordered_chunks, todo, cfg):
+    groups = _group_adjacent(ordered_chunks, todo, cfg)
+    stream = feature_stream(
+        groups, snp_features_group_worker,
+        (cfg.bam, cfg.ref, cfg_kwargs_for_workers(cfg), exclude_path),
+        cfg.cpu)
+    while True:
         with timer("snp.features"):
-            payloads = get_snp_group_payloads(
-                bam, fasta, [c for _, c in group], **kw)
+            item = next(stream, None)
+        if item is None:
+            break
+        _gi, payloads, py_windows = item
+        if py_windows:
+            bam.note_python_windows(py_windows)
         # a group over the payload caps comes back as one payload a member
-        idx_of = {id(c): oi for oi, c in group}
         for gf in payloads:
-            gf.members = [(idx_of[id(m)], sec) for m, sec in gf.members]
             if metrics is not None:
                 metrics.count("snp_candidates", len(gf))
             with timer("snp.infer_decode"):

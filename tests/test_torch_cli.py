@@ -104,9 +104,9 @@ def test_snp_vcfs_identical_to_jax_cli(snp_fixture):
 
 
 @pytest.mark.parametrize("change", [
-    dict(mode="all", cpu=2), dict(mode="all", watchdog=5),
-    dict(cpu=2), dict(mode="snps", dedup_transfer=False),
-    dict(mode="snps", snp_group_payload=False)])
+    dict(mode="all", watchdog=5), dict(mode="snps", dedup_transfer=False),
+    dict(mode="snps", snp_group_payload=False)],
+    ids=["change1", "change3", "change4"])  # the ids they had beside --cpu 2
 def test_unported_modes_raise(fixture, change):
     kw = _kw(fixture, "nope")
     kw.update(change)

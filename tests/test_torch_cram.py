@@ -193,15 +193,83 @@ def test_corrupt_and_truncated_cram_raise(cram_fixture):
         decode_reads(open_alignment(bad, fasta=fa), "chr_t", 0, 30000)
 
 
+def test_layout_outside_the_native_set_goes_to_the_python_decoder(
+        cram_fixture, monkeypatch):
+    """A container whose encoding _native_spec reports as outside the
+    native set (patched here for one container): its window is decoded
+    by the Python decoder, equal field for field to the all-native window
+    and to the JAX package's, and counted once a decode, with and without
+    a site filter; the counts-first decode refuses the window without
+    counting it (its caller decodes it with decode_reads); a flipped byte
+    inside a slice still raises, with nothing counted."""
+    from nanocaller_tpu.pileup.engine import decode_reads as j_decode_reads
+    from nanocaller_tpu_torch.io import cram as C
+
+    _tmp, fa, _bam_p, cram_p = cram_fixture
+    window = (12_000, 13_000)
+    native = decode_reads(CramReader(cram_p, fasta=fa), "chr_t", *window,
+                          keep_seq=True)
+    cr = CramReader(cram_p, fasta=fa)
+    target = next(ch.start for ch, _ in cr._iter_containers(0, *window))
+    seen, flip = {}, {}
+    orig_iter, orig_spec = CramReader._iter_containers, C._native_spec
+
+    def iter_containers(self, *a, **k):
+        for ch, data in orig_iter(self, *a, **k):
+            seen["start"] = ch.start
+            if flip and ch.start == target:
+                data = bytearray(data)
+                data[len(data) - 10] ^= 0x5A  # in the container's last slice
+            yield ch, bytes(data)
+
+    monkeypatch.setattr(CramReader, "_iter_containers", iter_containers)
+    monkeypatch.setattr(C, "_native_spec", lambda comp: (
+        None if seen.get("start") == target else orig_spec(comp)))
+    got = decode_reads(cr, "chr_t", *window, keep_seq=True)
+    assert cr.python_windows == 1
+    _windows_equal(got, native, "python vs native")
+    _windows_equal(got, j_decode_reads(JCramReader(cram_p, fasta=fa),
+                                       "chr_t", *window, keep_seq=True),
+                   "python vs jax")
+    np.testing.assert_array_equal(column_counts(got, *window),
+                                  column_counts(native, *window))
+    assert got.n_reads > 0
+
+    sites = np.arange(window[0] + 7, window[1], 61)
+    got = decode_reads(cr, "chr_t", *window, sites=sites)
+    assert cr.python_windows == 2
+    _windows_equal(got, decode_reads(CramReader(cram_p, fasta=fa), "chr_t",
+                                     *window, sites=sites), "sites native")
+    _windows_equal(got, j_decode_reads(JCramReader(cram_p, fasta=fa),
+                                       "chr_t", *window, sites=sites),
+                   "sites jax")
+    assert len(got.ev_pos) and set(got.ev_pos.tolist()) <= set(sites)
+    assert deferred_decode(cr, "chr_t", *window) is None
+    assert cr.python_windows == 2
+
+    monkeypatch.setattr(C, "_native_spec", orig_spec)
+    flip["on"] = True
+    with pytest.raises(ValueError):
+        decode_reads(cr, "chr_t", *window, keep_seq=True)
+    assert cr.python_windows == 2
+
+
 def _vcf_bytes(path):
     with gzip.open(path) as fh:
         return fh.read()
 
 
-def test_all_mode_cram_equals_bam_and_jax_cli(tmp_path):
+def test_all_mode_cram_equals_bam_and_jax_cli(tmp_path, monkeypatch):
     """`--mode all` on a CRAM: the five VCFs byte-identical to the port's
     BAM run and to the JAX CLI's CRAM run; the phased CRAM artifact holds
-    the phased BAM artifact's records."""
+    the phased BAM artifact's records. The same again with every
+    container's layout refused by the native decoder (_native_spec
+    patched): the SNP scan, the phasing and the indel decodes all go to
+    the Python decoder, each window counted in cram.python_windows."""
+    import json
+
+    from nanocaller_tpu_torch.io import cram as C
+
     rng = np.random.default_rng(12)
     L = 6000
     ref = random_seq(rng, L)
@@ -230,11 +298,19 @@ def test_all_mode_cram_equals_bam_and_jax_cli(tmp_path):
     outs = {"bam": run(Config(device="cpu", **kw(bam_p, "bam"))),
             "cram": run(Config(device="cpu", **kw(cram_p, "cram")))}
     j_run(JConfig(**kw(cram_p, "jax")))
+    monkeypatch.setattr(C, "_native_spec", lambda comp: None)
+    run(Config(device="cpu", **kw(cram_p, "cram_python")))
+    monkeypatch.undo()
     names = ("p.unfiltered.snps.vcf.gz", "p.snps.vcf.gz",
              "p.snps.phased.vcf.gz", "p.indels.vcf.gz", "p.vcf.gz")
     data = {side: [_vcf_bytes(str(tmp_path / side / n)) for n in names]
-            for side in ("bam", "cram", "jax")}
-    assert data["cram"] == data["bam"] == data["jax"]
+            for side in ("bam", "cram", "jax", "cram_python")}
+    assert data["cram"] == data["bam"] == data["jax"] == data["cram_python"]
+    counts = {side: json.load(open(str(tmp_path / side / "metrics.json")))[
+        "counts"].get("cram.python_windows") for side in
+        ("cram", "cram_python")}
+    # one SNP decode group, the phasing decode, the indel chunks' decodes
+    assert counts["cram"] == 0 and counts["cram_python"] >= 3, counts
     assert data["cram"][1].count(b"\tPASS\t") > 5
     assert outs["cram"]["final"] == str(tmp_path / "cram" / "p.vcf.gz")
     phase_dir = lambda side: str(tmp_path / side / "intermediate_phase_files")

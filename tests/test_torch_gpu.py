@@ -8,7 +8,9 @@ read over every site, every band schedule, clamped windows), one row,
 rows without neighbours, at the first and last site, deep rows with no
 valid id, windows longer than the kernel's list, and the wrapper's
 refusals; a SNP decode group over the payload caps, sent member by member
-(one K3 launch a member), against its uncapped run. Skips without a GPU.
+(one K3 launch a member), against its uncapped run; `--mode all --cpu 2`
+on cuda against cpu, with no CUDA context in a worker. Skips without a
+GPU.
 
 Imports neither jax nor the JAX package, so that it also runs where only
 the port is installed: `python -m pytest --noconftest tests/test_torch_gpu.py`.
@@ -355,8 +357,7 @@ def test_group_over_caps_on_card(tmp_path, monkeypatch):
         K3.reset_counters()
         call_snps(Config(bam=bam_p, ref=fa, mode="snps", cpu=1, output=out,
                          prefix="p", sample="S", device="cuda"),
-                  BamReader(bam_p), FastaFile(fa),
-                  [("chr_t", 1, L, "diploid")], [dict(c) for c in chunks],
+                  BamReader(bam_p), [("chr_t", 1, L, "diploid")], [dict(c) for c in chunks],
                   out)
         runs[name] = (K3.SNP_PILEUP_LAUNCHES,
                       _snp_records(os.path.join(out,
@@ -375,3 +376,44 @@ def test_group_over_caps_on_card(tmp_path, monkeypatch):
         px = [float(v) for v in x[7].split(";")[0][3:].split(",")]
         py = [float(v) for v in y[7].split(";")[0][3:].split(",")]
         assert np.abs(np.subtract(px, py)).max() <= 1.0001e-4, (x, y)
+
+
+@pytest.mark.cuda
+def test_dag_cpu2_on_card(tmp_path):
+    """`--mode all --cpu 2` with --haploid_X on the two-contig fixture of
+    tests/test_torch_dag.py, on cuda against the cpu run by chip_smoke's
+    record rules; K1, K2 and K3 launch in this process, and no worker
+    holds a CUDA context (nvidia-smi lists one process at most; no worker
+    maps libcuda)."""
+    _need_gpu()
+    import chip_smoke
+    from nanocaller_tpu_torch.caller import run
+    from nanocaller_tpu_torch.config import Config
+    from nanocaller_tpu_torch.sim import write_contigs_fixture
+
+    fa, bam_p, _, _ = write_contigs_fixture(
+        str(tmp_path), [("chr1", 60000, 11, 500, 4000, False),
+                        ("chrX", 30000, 12, 500, 4000, True)],
+        depth=30, read_len=3000)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        K.reset_counters()
+        K3.reset_counters()
+        with chip_smoke.CudaContextWatch() as watch:
+            outs[dev] = run(Config(
+                bam=bam_p, ref=fa, mode="all", cpu=2, haploid_X=True,
+                output=str(tmp_path / dev), prefix="p", sample="S",
+                device=dev, suppress_progress=True))
+        if dev == "cuda":
+            assert K3.SNP_PILEUP_LAUNCHES > 0 and K.NW_TB_LAUNCHES > 0 \
+                and K.NW_WALK_LAUNCHES > 0
+            assert len(watch.smi_pids) <= 1 and not watch.cuda_children
+            assert len(watch.workers) >= 2
+    unf = lambda p: p.replace(".snps.vcf.gz", ".unfiltered.snps.vcf.gz")
+    for key, kind in (("snps", "snp"), ("phased_snps", "snp"),
+                      ("indels", "indel"), ("final", "any")):
+        n, _ = chip_smoke.compare_records(outs["cuda"][key], outs["cpu"][key],
+                                          kind)
+        assert n > 0
+    chip_smoke.compare_records(unf(outs["cuda"]["snps"]),
+                               unf(outs["cpu"]["snps"]), "snp")

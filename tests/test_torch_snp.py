@@ -499,8 +499,8 @@ def _call_snps(side, a2a_fixture, out, cap, monkeypatch):
                     regions, chunks, kw["output"])
     else:
         monkeypatch.setattr(p_sf, "_GROUP_MAX_READS", cap)
-        P.call_snps(PConfig(device="cpu", **kw), BamReader(bam_p),
-                    FastaFile(fasta_p), regions, chunks, kw["output"])
+        P.call_snps(PConfig(device="cpu", **kw), BamReader(bam_p), regions,
+                    chunks, kw["output"])
     names = ("p.unfiltered.snps.vcf.gz", "p.snps.vcf.gz")
     out = []
     for name in names:
@@ -538,10 +538,12 @@ def test_group_over_caps_goes_member_by_member(a2a_fixture, monkeypatch):
     fixture one PR value of the JAX CNN and the port's straddles a %.4f
     rounding (position 2601: 0.0245 vs 0.0244), the parity bar's
     exception, which the JAX package's own group run shares."""
+    from nanocaller_tpu_torch.pileup import snp_features as p_sf
+
     _tmp, fasta_p, bam_p, cap = a2a_fixture
     payloads = []
-    real = P.get_snp_group_payloads
-    monkeypatch.setattr(P, "get_snp_group_payloads", lambda *a, **k: (
+    real = p_sf.get_snp_group_payloads
+    monkeypatch.setattr(p_sf, "get_snp_group_payloads", lambda *a, **k: (
         payloads.append(real(*a, **k)) or payloads[-1]))
     want = _call_snps("jax", a2a_fixture, "jax", cap, monkeypatch)
     got = _call_snps("port", a2a_fixture, "port", cap, monkeypatch)
