@@ -10,13 +10,17 @@ Phases, each printing one JSON line per case:
    started together) and the g++ build of the native host library
    (io/native/ncio.cpp);
 2. K1 nw_tb against its plain twin, exactly equal, with kernel, twin
-   and bound times: at the buckets (192,192), (256,192), (512,512) with
-   B = 1024 and both scoring sets; at the main path's launch shapes
-   (MAIN_LAUNCHES); on tie-heavy pairs (homopolymer runs, tandem repeats
-   with a unit inserted or deleted, identical sequences) at both scorings;
+   and bound times: at the buckets (192,192), (256,192), (256,320),
+   (512,512) with B = 1024 and both scoring sets; at the main path's
+   launch shapes (MAIN_LAUNCHES); on tie-heavy pairs (homopolymer runs,
+   tandem repeats with a unit inserted or deleted, identical sequences)
+   at both scorings;
 3. K2 nw_walk against its plain twin on each of those tracebacks,
    exactly equal, timed right after a K1 launch (warm L2, as the main
-   path finds it), with the longest walk's step count;
+   path finds it), with the longest walk's step count; then K4 nw_cigar
+   against its plain twin on each of K2's op streams and the pairs' raw
+   bytes (with lowercase and N bytes), the counts and every run exactly
+   equal, with kernel, twin and bound times;
 4. the indel CNNs (diploid and haploid packs) on cuda against cpu,
    atol 2e-5, B = 256;
 5. the indel slice: a haplotagged fixture (one 500 kb contig, ~30x,
@@ -51,7 +55,7 @@ Phases, each printing one JSON line per case:
    substitution and 1% indel errors, a planted SNP every 1,000 bp and a
    planted 1-6 bp indel every 5,000 bp, through `--mode all --cpu 1` on
    cuda (all counters reset just before and read just after: K3 once a
-   cohort, K1 and K2 on every indel chunk) and on cpu: SNP calling,
+   cohort, K1, K2 and K4 on every indel chunk) and on cpu: SNP calling,
    phasing on the host, the indel stage on the phasing's haplotags, the
    final VCF. The five VCFs must agree (SNP and indel rules; the final
    VCF each record by its kind), the high-QUAL set phasing took and its
@@ -77,18 +81,29 @@ Phases, each printing one JSON line per case:
    500 kb chrX of hom SNPs (30x, 8 kb reads, phase 9's densities). The
    feature workers (spawned, no torch) build the SNP payloads, phase
    each diploid contig and collect the indel jobs; this process owns the
-   card and runs K3, the SNP CNN, finish_indel_jobs (K1 + K2 over every
-   pending chunk's pairs) and the indel CNN. Runs: cuda --cpu 1 (wall
-   only), cuda --cpu N with the counters reset just before and read
-   just after (K1, K2 and K3 must all launch) while nvidia-smi's compute
-   apps and the workers' memory maps are polled (no process but this
-   one may hold a CUDA context, and no worker may map libcuda), a second
-   cuda --cpu N run (byte-identical VCFs), cpu --cpu N (the same chunks;
+   card and runs K3, the SNP CNN, finish_indel_jobs (K1, K2 and K4 over
+   every pending chunk's pairs) and the indel CNN. Runs: cuda --cpu 1
+   (wall only), cuda --cpu N with the counters reset just before and
+   read just after (K1, K2, K3 and K4 must all launch; launches and pairs
+   by kernel and bucket printed, and the split of `indel.align_finish`:
+   encoding, K1/K2/K4 with their copies, MSA projection, allele round)
+   while nvidia-smi's compute apps and the workers' memory maps are
+   polled (no process but this one may hold a CUDA context, and no
+   worker may map libcuda), a second cuda --cpu N run (byte-identical
+   VCFs) that must make no call to the host walk (`_walk_to_cigar`,
+   `refine_diag_ops`) and copy no op stream of K2 to the host, cpu
+   --cpu N (the same chunks;
    the records by phase 9's rules, hiq sets, phase maps and artifacts);
    the cuda --cpu 1 run's records too, by the same rules, where --cpu 1
    and --cpu N cut the same chunks;
    the stage timeline must unlock a contig's indels before the last
-   contig is phased; then the cuda --cpu N run under torch.profiler.
+   contig is phased; then the cuda --cpu N run under torch.profiler;
+13. `--preset ccs --mode all --cpu 1` (PacBio: 260 bp of reference after
+   a candidate, CCS packs) on the CRAM phase's 500 kb cut of phase 9's
+   fixture, on cuda (counters reset just before, read just after) and
+   on cpu; the five VCFs by phase 9's rules, the hiq sets and phase maps
+   identical; K1, K2 and K4 must launch in a bucket with R >= 256, their
+   launches by bucket printed.
 
 Then one JSON line with every kernel's launches (on the main path's
 --mode all --cpu N run; each path's own under launches_by_path), error
@@ -128,6 +143,14 @@ K1_OPS_PER_CELL = 17
 # the source extract, its == 0 test, i - 1, j - 1, the (i | j) != 0 end
 # test and the step counter
 K2_OPS_PER_STEP = 10
+# int32 operations a serial run-length scan of K2's stream needs (the
+# function's work, not K4's ballot bookkeeping), one each: per op-stream
+# byte the load address, the zero test and the loop step; per non-zero op
+# the code tests (two), the bound test, the index increment, for a
+# diagonal the byte compare and the "ACGT" test, the run compare, and the
+# length increment or the packed store
+K4_OPS_PER_BYTE = 3
+K4_OPS_PER_OP = 8
 # int32 operations per cell code the pileup needs, one each: the two
 # interval compares and their and; the hole row's and the exception row's
 # empty test; one binary-search step (mid add and shift, compare,
@@ -156,7 +179,7 @@ K3_OPS_PER_COLUMN = 3
 # the SNP slice's K3 launches: one diploid cohort for each of its five
 # decode groups (no deep row at maxcov 160)
 SNP_LAUNCHES = 5
-BUCKETS = [(192, 192), (256, 192), (512, 512)]
+BUCKETS = [(192, 192), (256, 192), (256, 320), (512, 512)]
 SCORINGS = {"allele": (20, -10, 9, 1), "msa": (5, -4, 8, 1)}
 B_NW = 1024
 # (Q, R, B, scoring) of the main path's launches, from BatchAligner on
@@ -259,10 +282,13 @@ def _mutate(rng, seq, rate):
 
 def nw_inputs(rng, B, Q, R):
     """Half random codes with random lengths, half fixture-like pairs: a
-    read window (the ref mutated at 10%) against its ref window."""
+    read window (the ref mutated at 10%) against its ref window. Returns
+    the codes and lengths K1 and K2 take and the raw bytes K4 takes:
+    a random code's byte is one of "ACGTN", lowercase one time in ten
+    (K1's codes fold the case, K4 calls a/a 'X')."""
     import numpy as np
 
-    from nanocaller_tpu_torch.align.batch_nw import encode_pairs
+    from nanocaller_tpu_torch.align.batch_nw import encode_pairs, pad_bytes
 
     q = rng.integers(0, 5, (B, Q)).astype(np.int8)
     r = rng.integers(0, 5, (B, R)).astype(np.int8)
@@ -275,12 +301,17 @@ def nw_inputs(rng, B, Q, R):
         pairs.append((_mutate(rng, ref, 0.1)[:Q], ref))
     fq, fr, fql, frl = encode_pairs(pairs, Q, R)
     q[B // 2:], r[B // 2:], qlens[B // 2:], rlens[B // 2:] = fq, fr, fql, frl
-    return q, r, qlens, rlens
+    letters = np.frombuffer(b"ACGTNacgtn", np.uint8)
+    qraw = letters[q + 5 * (rng.random(q.shape) < 0.1)]
+    rraw = letters[r + 5 * (rng.random(r.shape) < 0.1)]
+    qraw[B // 2:] = pad_bytes([a for a, _ in pairs], Q)[0]
+    rraw[B // 2:] = pad_bytes([b for _, b in pairs], R)[0]
+    return q, r, qlens, rlens, qraw, rraw
 
 
 def nw_cases(rng):
     """Phase 2-3 inputs: (label, Q, R, B, scoring, inputs)."""
-    from nanocaller_tpu_torch.align.batch_nw import encode_pairs
+    from nanocaller_tpu_torch.align.batch_nw import encode_pairs, pad_bytes
     from nanocaller_tpu_torch.sim import TIE_KINDS, tie_heavy_pairs
 
     for Q, R in BUCKETS:
@@ -290,8 +321,10 @@ def nw_cases(rng):
     for Q, R, B, sname in MAIN_LAUNCHES:
         yield "main_path", Q, R, B, sname, nw_inputs(rng, B, Q, R)
     for kind in TIE_KINDS:
-        inputs = encode_pairs(tie_heavy_pairs(rng, B_TIE, 192, 192, kind),
-                              192, 192)
+        pairs = tie_heavy_pairs(rng, B_TIE, 192, 192, kind)
+        inputs = (*encode_pairs(pairs, 192, 192),
+                  pad_bytes([a for a, _ in pairs], 192)[0],
+                  pad_bytes([b for _, b in pairs], 192)[0])
         for sname in SCORINGS:
             yield "ties_" + kind, 192, 192, B_TIE, sname, inputs
 
@@ -303,12 +336,24 @@ def bound(nbytes, ops):
             "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
 
 
+def nw_counters(K):
+    """K1, K2 and K4's launch counters, K1's pairs, and the launches and
+    pairs of each kernel by bucket."""
+    return {"NW_TB_LAUNCHES": K.NW_TB_LAUNCHES,
+            "NW_WALK_LAUNCHES": K.NW_WALK_LAUNCHES,
+            "NW_CIGAR_LAUNCHES": K.NW_CIGAR_LAUNCHES,
+            "NW_TB_PAIRS": K.NW_TB_PAIRS,
+            "nw_by_bucket": {"%s %dx%d" % k: list(v)
+                             for k, v in sorted(K.BY_BUCKET.items())}}
+
+
 def phase_kernels(K, rng):
-    """Phases 2 and 3: K1 and K2 against their twins, exact, with times."""
+    """Phases 2 and 3: K1, K2 and K4 against their twins, exact, with
+    times."""
     import torch
 
     rows = []
-    for label, Q, R, B, sname, (q, r, ql, rl) in nw_cases(rng):
+    for label, Q, R, B, sname, (q, r, ql, rl, qraw, rraw) in nw_cases(rng):
         params = SCORINGS[sname]
         qd, rd = torch.from_numpy(q).cuda(), torch.from_numpy(r).cuda()
         ql, rl = torch.from_numpy(ql), torch.from_numpy(rl)
@@ -358,7 +403,28 @@ def phase_kernels(K, rng):
                **bound(B * T + steps + 8 * B, steps * K2_OPS_PER_STEP)}
         emit(row)
         rows.append(row)
-        del tb, ops_k, twin_k, cur
+
+        qr, rr = torch.from_numpy(qraw).cuda(), torch.from_numpy(rraw).cuda()
+        runs, counts = K.nw_cigar(ops_k, qr, rr)
+        w_runs, w_counts = K.nw_cigar_reference(ops_k, qr, rr)
+        torch.cuda.synchronize()
+        keep = torch.arange(Q + R, device="cuda")[None, :] < counts[:, None]
+        if not torch.equal(counts, w_counts) or int(counts.min()) < 0 or \
+                not torch.equal(torch.where(keep, runs, 0), w_runs):
+            fail("K4 differs from its twin at %s" % shape)
+        n_runs = int(counts.sum())
+        ms = cuda_ms(lambda: K.nw_cigar(ops_k, qr, rr), 10)
+        plain_ms = cuda_ms(lambda: K.nw_cigar_reference(ops_k, qr, rr), 1)
+        row = {"phase": "K4_nw_cigar", **shape, "exact": True,
+               "max_abs_err": 0, "runs": n_runs,
+               "most_runs": int(counts.max()), "ms": ms,
+               "plain_ms": plain_ms,
+               **bound(B * T + B * (Q + R) + 4 * (n_runs + B),
+                       B * T * K4_OPS_PER_BYTE + int(nz.sum())
+                       * K4_OPS_PER_OP)}
+        emit(row)
+        rows.append(row)
+        del tb, ops_k, twin_k, cur, runs, w_runs
     return rows
 
 
@@ -531,14 +597,13 @@ def phase_slice(K, tmp):
         t0 = time.perf_counter()
         outputs = cli.main(argv)
         wall = time.perf_counter() - t0
-        counts = {"NW_TB_LAUNCHES": K.NW_TB_LAUNCHES,
-                  "NW_WALK_LAUNCHES": K.NW_WALK_LAUNCHES,
-                  "NW_TB_PAIRS": K.NW_TB_PAIRS}
+        counts = nw_counters(K)
         with open(os.path.join(out, "metrics.json")) as fh:
             metrics = json.load(fh)
         runs[dev] = (outputs["indels"], wall, counts, metrics)
     vcf_cuda, wall, counts, metrics = runs["cuda"]
-    if counts["NW_TB_LAUNCHES"] < 1 or counts["NW_WALK_LAUNCHES"] < 1:
+    if min(counts[k] for k in ("NW_TB_LAUNCHES", "NW_WALK_LAUNCHES",
+                               "NW_CIGAR_LAUNCHES")) < 1:
         fail("main path launched no kernel: %s" % counts)
     if counts["NW_TB_PAIRS"] < 1000:
         fail("only %d pairs went through K1 (< 1000)" % counts["NW_TB_PAIRS"])
@@ -554,7 +619,8 @@ def phase_slice(K, tmp):
             "--prefix", "smoke", "--sample", "S", "--suppress_progress_bar"]
     prof, kern, _ = profile_slice(cli, argv, ("nw_tb_rows_kernel",
                                                "nw_tb_wave_kernel",
-                                               "nw_walk_kernel"))
+                                               "nw_walk_kernel",
+                                               "nw_cigar_kernel"))
     if n_rec < 1:
         fail("no indel records called")
     emit({"phase": "slice", "contig_bp": FIXTURE_LEN, "reads": n_reads,
@@ -1004,9 +1070,7 @@ def phase_all_slice(tmp):
         outputs = cli.main(argv(dev, "all_" + dev))
         wall = time.perf_counter() - t0
         counts = {"SNP_PILEUP_LAUNCHES": K3.SNP_PILEUP_LAUNCHES,
-                  "NW_TB_LAUNCHES": K.NW_TB_LAUNCHES,
-                  "NW_WALK_LAUNCHES": K.NW_WALK_LAUNCHES,
-                  "NW_TB_PAIRS": K.NW_TB_PAIRS}
+                  **nw_counters(K)}
         with open(os.path.join(tmp, "all_" + dev, "metrics.json")) as fh:
             metrics = json.load(fh)
         runs[dev] = (outputs, wall, counts, metrics)
@@ -1016,12 +1080,13 @@ def phase_all_slice(tmp):
         fail("--mode all launched K3 %d times, not once a cohort (%d)"
              % (counts["SNP_PILEUP_LAUNCHES"], cohorts))
     # every 100 kb chunk of this fixture holds planted indels, so each
-    # aligns its candidates' reads through K1 and K2
-    if n_chunks < 2 or counts["NW_TB_LAUNCHES"] < n_chunks or \
-            counts["NW_WALK_LAUNCHES"] < n_chunks:
-        fail("--mode all launched K1 %d and K2 %d times for %d indel chunks"
-             % (counts["NW_TB_LAUNCHES"], counts["NW_WALK_LAUNCHES"],
-                n_chunks))
+    # aligns its candidates' reads through K1, K2 and K4
+    if n_chunks < 2 or min(counts[k] for k in (
+            "NW_TB_LAUNCHES", "NW_WALK_LAUNCHES",
+            "NW_CIGAR_LAUNCHES")) < n_chunks:
+        fail("--mode all launched K1 %d, K2 %d and K4 %d times for %d indel "
+             "chunks" % (counts["NW_TB_LAUNCHES"], counts["NW_WALK_LAUNCHES"],
+                         counts["NW_CIGAR_LAUNCHES"], n_chunks))
     if any(runs["cpu"][2][k] for k in ("SNP_PILEUP_LAUNCHES",
                                        "NW_TB_LAUNCHES")):
         fail("the cpu run launched a CUDA kernel")
@@ -1086,7 +1151,7 @@ def phase_all_slice(tmp):
     prof, kern, dev = profile_slice(
         cli, argv("cuda", "all_prof"),
         ("nw_tb_rows_kernel", "nw_tb_wave_kernel", "nw_walk_kernel",
-         "snp_pileup_kernel"))
+         "nw_cigar_kernel", "snp_pileup_kernel"))
     part = lambda *names: sum(us for k, (us, _) in dev.items()
                               if any(n in k for n in names))
     kern["copies_us"] = part("Memcpy", "Memset")
@@ -1266,6 +1331,7 @@ def phase_cram_all(tmp):
           "artifact_tagged": tagged, "bam_wall_s": walls["bam"],
           "cram_wall_s": walls["cram"], "bam_timers_s": timers["bam"],
           "cram_timers_s": timers["cram"]})
+    return fasta_p, bam_p
 
 
 def _child_pids(pid):
@@ -1411,33 +1477,42 @@ def phase_dag(tmp):
                 os.path.join(tmp, out), "--prefix", "smoke", "--sample", "S",
                 "--suppress_progress_bar"]
 
-    def drive(dev, cpu, out, watch=False):
+    def drive(dev, cpu, out, watch=None):
         K.reset_counters()
         K3.reset_counters()
-        w = CudaContextWatch() if watch else None
         t0 = time.perf_counter()
-        if w:
-            with w:
+        if watch:
+            with watch:
                 outputs = cli.main(argv(dev, cpu, out))
         else:
             outputs = cli.main(argv(dev, cpu, out))
         wall = time.perf_counter() - t0
         counts = {"SNP_PILEUP_LAUNCHES": K3.SNP_PILEUP_LAUNCHES,
-                  "NW_TB_LAUNCHES": K.NW_TB_LAUNCHES,
-                  "NW_WALK_LAUNCHES": K.NW_WALK_LAUNCHES,
-                  "NW_TB_PAIRS": K.NW_TB_PAIRS}
+                  **nw_counters(K)}
         with open(os.path.join(tmp, out, "metrics.json")) as fh:
             metrics = json.load(fh)
-        return outputs, wall, counts, metrics, w
+        return outputs, wall, counts, metrics, watch
 
     runs = {"cuda1": drive("cuda", 1, "dag_cuda1"),
-            "cudaN": drive("cuda", n, "dag_cudaN", watch=True),
-            "cudaN_again": drive("cuda", n, "dag_cudaN_again"),
+            "cudaN": drive("cuda", n, "dag_cudaN", CudaContextWatch()),
+            "cudaN_again": drive("cuda", n, "dag_cudaN_again",
+                                 HostWalkWatch()),
             "cpuN": drive("cpu", n, "dag_cpuN")}
     outs, wall, counts, metrics, watch = runs["cudaN"]
-    for k in ("SNP_PILEUP_LAUNCHES", "NW_TB_LAUNCHES", "NW_WALK_LAUNCHES"):
+    for k in ("SNP_PILEUP_LAUNCHES", "NW_TB_LAUNCHES", "NW_WALK_LAUNCHES",
+              "NW_CIGAR_LAUNCHES"):
         if not counts[k] > 0:
             fail("--mode all --cpu %d did not launch %s" % (n, k))
+    walk = runs["cudaN_again"][4]
+    if walk.walk_calls or walk.op_copies or not walk.op_streams:
+        fail("the cuda path called the host walk %d times and moved %d of "
+             "K2's %d op streams" % (walk.walk_calls, walk.op_copies,
+                                      walk.op_streams))
+    split = {k: v for k, v in metrics["timers_s"].items()
+             if k.startswith("indel.align_finish")}
+    emit({"phase": "dag_align_finish_split", "cpu": n, **split,
+          "walk_calls": walk.walk_calls, "op_stream_copies": walk.op_copies,
+          "op_streams": walk.op_streams})
     if any(runs["cpuN"][2][k] for k in ("SNP_PILEUP_LAUNCHES",
                                         "NW_TB_LAUNCHES")):
         fail("the cpu run launched a CUDA kernel")
@@ -1520,7 +1595,7 @@ def phase_dag(tmp):
     prof, kern, dev = profile_slice(
         cli, argv("cuda", n, "dag_prof"),
         ("nw_tb_rows_kernel", "nw_tb_wave_kernel", "nw_walk_kernel",
-         "snp_pileup_kernel"))
+         "nw_cigar_kernel", "snp_pileup_kernel"))
     emit({"phase": "dag", "cpu": n, "contigs": [c[:2] for c in DAG_CONTIGS],
           "reads": n_reads, "planted_snps": n_snps,
           "planted_indels": n_indels, "fixture_s": t_fixture,
@@ -1545,6 +1620,130 @@ def phase_dag(tmp):
           "launches_k1": K.NW_TB_LAUNCHES,
           "copies_us": sum(us for k, (us, _) in dev.items()
                            if "Memcpy" in k or "Memset" in k)})
+    return counts
+
+
+class HostWalkWatch:
+    """While entered, counts the calls of the host walk K4 replaced
+    (batch_nw._walk_to_cigar, batch_nw.refine_diag_ops), the op streams
+    K2 returns to BatchAligner, and every move of such a stream off the
+    card: Tensor.cpu, .to, .tolist, .item, .numpy on it, or Tensor.copy_
+    from it."""
+
+    def __enter__(self):
+        import weakref
+
+        import torch
+        from nanocaller_tpu_torch.align import batch_nw
+
+        self.walk_calls = self.op_streams = self.op_copies = 0
+        live = {}
+
+        def is_stream(t):
+            ref = live.get(id(t))
+            return ref is not None and ref() is t
+
+        def walk(fn):
+            def call(*a, **kw):
+                self.walk_calls += 1
+                return fn(*a, **kw)
+            return call
+
+        def stream(fn):
+            def call(*a, **kw):
+                out = fn(*a, **kw)
+                live[id(out)] = weakref.ref(out)
+                self.op_streams += 1
+                return out
+            return call
+
+        def move(fn, src=0):
+            def call(*a, **kw):
+                if len(a) > src and is_stream(a[src]):
+                    self.op_copies += 1
+                return fn(*a, **kw)
+            return call
+
+        wraps = [(batch_nw, "_walk_to_cigar", walk),
+                 (batch_nw, "refine_diag_ops", walk),
+                 (batch_nw, "nw_walk", stream),
+                 (torch.Tensor, "copy_", lambda fn: move(fn, src=1))]
+        wraps += [(torch.Tensor, name, move)
+                  for name in ("cpu", "to", "tolist", "item", "numpy")]
+        self._saved = [(owner, name, getattr(owner, name))
+                       for owner, name, _ in wraps]
+        for owner, name, wrap in wraps:
+            setattr(owner, name, wrap(getattr(owner, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        return False
+
+
+def phase_ccs(tmp, fasta_p, bam_p):
+    """Phase 13: `--preset ccs --mode all --cpu 1` on the CRAM phase's
+    500 kb BAM, on cuda (counters reset just before, read just after) and
+    on cpu. The five VCFs by phase 9's rules, the hiq sets and phase maps
+    identical; K1, K2 and K4 must launch in a bucket with R >= 256 (ccs
+    reads 260 bp of reference after a candidate). Returns the cuda run's
+    counters."""
+    from nanocaller_tpu_torch import cli
+    from nanocaller_tpu_torch.align import nw_kernels as K
+    from nanocaller_tpu_torch.pileup import snp_pileup as K3
+
+    unf = lambda p: p.replace(".snps.vcf.gz", ".unfiltered.snps.vcf.gz")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(tmp, "ccs_" + dev)
+        K.reset_counters()
+        K3.reset_counters()
+        t0 = time.perf_counter()
+        outputs = cli.main([
+            "--bam", bam_p, "--ref", fasta_p, "--mode", "all", "--cpu", "1",
+            "--preset", "ccs", "--device", dev, "--output", out,
+            "--prefix", "smoke", "--sample", "S", "--suppress_progress_bar"])
+        wall = time.perf_counter() - t0
+        counts = {"SNP_PILEUP_LAUNCHES": K3.SNP_PILEUP_LAUNCHES,
+                  **nw_counters(K)}
+        with open(os.path.join(out, "metrics.json")) as fh:
+            timers = json.load(fh)["timers_s"]
+        runs[dev] = (outputs, wall, counts, timers)
+    outs, wall, counts, timers = runs["cuda"]
+    cpu_outs = runs["cpu"][0]
+    if runs["cpu"][2]["NW_TB_LAUNCHES"] or runs["cpu"][2][
+            "SNP_PILEUP_LAUNCHES"]:
+        fail("the cpu ccs run launched a CUDA kernel")
+    wide = {k.split()[0] for k, (n, _) in counts["nw_by_bucket"].items()
+            if n and int(k.split()[1].split("x")[1]) >= 256}
+    if wide != {"nw_tb", "nw_walk", "nw_cigar"}:
+        fail("--preset ccs launched only %s in a bucket with R >= 256: %s"
+             % (sorted(wide), counts["nw_by_bucket"]))
+    records, cases = {}, []
+    for name, key, kind in (("unfiltered", "snps", "snp"),
+                            ("snps", "snps", "snp"),
+                            ("snps.phased", "phased_snps", "snp"),
+                            ("indels", "indels", "indel"),
+                            ("final", "final", "any")):
+        a, b = outs[key], cpu_outs[key]
+        if name == "unfiltered":
+            a, b = unf(a), unf(b)
+        records[name], diffs = compare_records(a, b, kind)
+        cases += [dict(d, vcf=name) for d in diffs]
+    for d in cases:
+        emit({"phase": "ccs_rounding_case", **d})
+    sets = [_vcf_phase_sets(os.path.join(
+        tmp, "ccs_" + dev, "intermediate_phase_files",
+        "chr_t.snps.phased.vcf.gz")) for dev in ("cuda", "cpu")]
+    if sets[0] != sets[1]:
+        fail("the hiq set or phase map of the ccs runs differs")
+    if records["snps"] < 100 or records["indels"] < 10:
+        fail("too little was called with --preset ccs: %s" % records)
+    emit({"phase": "ccs", "contig_bp": CRAM_FIXTURE_LEN, "records": records,
+          "rounding_cases": len(cases), "cuda_wall_s": wall,
+          "cpu_wall_s": runs["cpu"][1], "cuda_timers_s": timers,
+          "cpu_timers_s": runs["cpu"][3], **counts})
     return counts
 
 
@@ -1593,15 +1792,16 @@ def main():
                            snp_counts["SNP_PILEUP_LAUNCHES"])
         all_counts = phase_all_slice(tmp)
         phase_a2a(tmp, fasta_p, bam_p)
-        phase_cram_all(tmp)
+        cut_fasta, cut_bam = phase_cram_all(tmp)
         dag_counts = phase_dag(tmp)
+        ccs_counts = phase_ccs(tmp, cut_fasta, cut_bam)
 
     def pick(phase):
         return next(r for r in rows if r["phase"] == phase and
                     r["inputs"] == "bucket" and
                     (r["Q"], r["R"], r["scoring"]) == (192, 192, "msa"))
 
-    k1, k2 = pick("K1_nw_tb"), pick("K2_nw_walk")
+    k1, k2, k4 = pick("K1_nw_tb"), pick("K2_nw_walk"), pick("K4_nw_cigar")
     k3 = next(r for r in k3_rows if r["inputs"].startswith("main_group1"))
 
     def max_err(phase, rows=rows):
@@ -1614,7 +1814,8 @@ def main():
          "launches": dag_counts["NW_TB_LAUNCHES"],
          "launches_by_path": {"indels": counts["NW_TB_LAUNCHES"],
                               "all": all_counts["NW_TB_LAUNCHES"],
-                              "all_cpuN": dag_counts["NW_TB_LAUNCHES"]},
+                              "all_cpuN": dag_counts["NW_TB_LAUNCHES"],
+                              "all_ccs": ccs_counts["NW_TB_LAUNCHES"]},
          "max_abs_err": max_err("K1_nw_tb"),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -1625,10 +1826,23 @@ def main():
          "launches": dag_counts["NW_WALK_LAUNCHES"],
          "launches_by_path": {"indels": counts["NW_WALK_LAUNCHES"],
                               "all": all_counts["NW_WALK_LAUNCHES"],
-                              "all_cpuN": dag_counts["NW_WALK_LAUNCHES"]},
+                              "all_cpuN": dag_counts["NW_WALK_LAUNCHES"],
+                              "all_ccs": ccs_counts["NW_WALK_LAUNCHES"]},
          "max_abs_err": max_err("K2_nw_walk"),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": None, "shape": "B=1024 Q=192 R=192 msa scoring"},
+        {"name": "nw_cigar", "route": "cuda",
+         "source": "nanocaller_tpu_torch/csrc/nw_cigar.cu",
+         "replaces": "nanocaller_tpu/align/batch_nw.py:266-309 (host walk)",
+         "launches": dag_counts["NW_CIGAR_LAUNCHES"],
+         "launches_by_path": {"indels": counts["NW_CIGAR_LAUNCHES"],
+                              "all": all_counts["NW_CIGAR_LAUNCHES"],
+                              "all_cpuN": dag_counts["NW_CIGAR_LAUNCHES"],
+                              "all_ccs": ccs_counts["NW_CIGAR_LAUNCHES"]},
+         "max_abs_err": max_err("K4_nw_cigar"),
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
          "library_ms": None, "shape": "B=1024 Q=192 R=192 msa scoring"},
         {"name": "snp_pileup", "route": "cuda",
          "source": "nanocaller_tpu_torch/csrc/snp_pileup.cu",
@@ -1636,7 +1850,8 @@ def main():
          "launches": dag_counts["SNP_PILEUP_LAUNCHES"],
          "launches_by_path": {"snps": snp_counts["SNP_PILEUP_LAUNCHES"],
                               "all": all_counts["SNP_PILEUP_LAUNCHES"],
-                              "all_cpuN": dag_counts["SNP_PILEUP_LAUNCHES"]},
+                              "all_cpuN": dag_counts["SNP_PILEUP_LAUNCHES"],
+                              "all_ccs": ccs_counts["SNP_PILEUP_LAUNCHES"]},
          "max_abs_err": max_err("K3_snp_pileup", k3_rows),
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],

@@ -1,10 +1,15 @@
-"""Batched affine NW on the device: BatchAligner over kernels K1 + K2.
+"""Batched affine NW on the device: BatchAligner over kernels K1, K2, K4.
 
 The port of nanocaller_tpu/align/batch_nw.py::BatchAligner. Thousands of
 (query, ref) pairs are padded into (Q, R) buckets; K1 (`nw_tb`) runs the
-DP of a bucket in one launch and K2 (`nw_walk`) walks every traceback on
-the device, so only the (B, T) op stream comes back to the host. Cigars
-are identical to nw.nw_align (the tests assert it).
+DP of a bucket in one launch, K2 (`nw_walk`) walks every traceback on
+the device, and K4 (`nw_cigar`) turns each pair's op stream into its
+packed cigar runs there too, from the pairs' raw bytes. Only the run
+counts and the runs, cut at the largest count, come back to the host,
+through pinned memory: neither the traceback nor K2's (B, T) op stream
+is copied. Cigars are identical to nw.nw_align's (the tests assert it;
+a diagonal step is '=' only for equal bytes in "ACGT", as
+refine_diag_ops decides).
 
 The DP of cell (i, j) reads only cells (≤i, ≤j), so it does not depend
 on padding: the port drops the TPU's lane padding of R+1 to a multiple
@@ -14,17 +19,19 @@ exceeds TB_CAP_BYTES.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from ..runtime.device import resolve_device
-from .nw import _CHAR_CODE, nw_align
-from .nw_kernels import nw_tb, nw_walk
+from .nw import _CHAR_CODE, nw_align, pack_cigar
+from .nw_kernels import nw_cigar, nw_tb, nw_walk
 
 
 def _traceback_matrix(tb, qlen, rlen):
     """Host traceback over one uint8 matrix (same walk as nw.py); the
-    host oracle of K2."""
+    host oracle of K2, called by tests only."""
     i, j = int(qlen), int(rlen)
     ops = []
     state = 0
@@ -60,29 +67,47 @@ def _traceback_matrix(tb, qlen, rlen):
     return ops
 
 
+def pad_bytes(strings, width):
+    """ASCII strings → their bytes in an (n, width) uint8 array, zero
+    padded, and their (n,) int32 lengths: one join, one scatter by
+    offsets."""
+    n = len(strings)
+    lens = np.fromiter(map(len, strings), np.int64, n)
+    if n and int(lens.max()) > width:
+        raise ValueError("pad_bytes: a string of %d bytes exceeds the "
+                         "width %d" % (int(lens.max()), width))
+    out = np.zeros((n, width), np.uint8)
+    total = int(lens.sum())
+    if total:
+        cat = np.frombuffer("".join(strings).encode("ascii"), np.uint8)
+        starts = np.cumsum(lens) - lens
+        out.reshape(-1)[np.arange(total) + np.repeat(
+            np.arange(n) * width - starts, lens)] = cat
+    return out, lens.astype(np.int32)
+
+
 def encode_pairs(pairs, Q, R):
     """(query, ref) strings → qcodes (n, Q) int8 and rcodes (n, R) int8
-    (0-3 ACGT, 4 other and pad) and their (n,) int32 lengths: one bucket's
-    inputs to K1 and K2."""
-    n = len(pairs)
-    qcodes = np.full((n, Q), 4, np.int8)
-    rcodes = np.full((n, R), 4, np.int8)
-    qlens = np.zeros(n, np.int32)
-    rlens = np.zeros(n, np.int32)
-    for b, (q, r) in enumerate(pairs):
-        qa = _CHAR_CODE[np.frombuffer(q.encode(), dtype=np.uint8)]
-        ra = _CHAR_CODE[np.frombuffer(r.encode(), dtype=np.uint8)]
-        qcodes[b, : len(qa)] = qa
-        rcodes[b, : len(ra)] = ra
-        qlens[b] = len(qa)
-        rlens[b] = len(ra)
-    return qcodes, rcodes, qlens, rlens
+    (0-3 ACGT in either case, 4 other and pad) and their (n,) int32
+    lengths: one bucket's inputs to K1 and K2."""
+    qraw, qlens = pad_bytes([q for q, _ in pairs], Q)
+    rraw, rlens = pad_bytes([r for _, r in pairs], R)
+    return _CHAR_CODE[qraw], _CHAR_CODE[rraw], qlens, rlens
+
+
+def _to_host(t):
+    """Queue t's copy into pinned host memory (t itself on the CPU)."""
+    if t.device.type == "cpu":
+        return t
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    return h
 
 
 class BatchAligner:
-    """Pads string pairs into fixed (Q, R) buckets, runs K1 + K2 on
-    `device` and turns the op streams into cigars identical to
-    nw.nw_align. On device="cpu" the kernels' plain twins run."""
+    """Pads string pairs into fixed (Q, R) buckets, runs K1, K2 and K4 on
+    `device` and returns cigars identical to nw.nw_align's. On
+    device="cpu" the kernels' plain twins run."""
 
     BUCKETS = (64, 128, 192, 256, 320, 512)
     # largest traceback buffer one K1 launch may allocate
@@ -92,6 +117,10 @@ class BatchAligner:
                  device="cuda"):
         self.params = (match, mismatch, gap_open, gap_extend)
         self.device = resolve_device(device)
+        # seconds spent by align_many: "encode" (bucketing, the byte and
+        # code arrays), "device" (K1/K2/K4 launches, the copies back, the
+        # split into cigars)
+        self.timers = {"encode": 0.0, "device": 0.0}
 
     def _bucket(self, n):
         for b in self.BUCKETS:
@@ -99,45 +128,85 @@ class BatchAligner:
                 return b
         return None
 
-    def align_many(self, pairs):
-        """pairs: list of (query, ref) strings → list of cigars
-        (same op/length convention as nw.nw_align)."""
+    def align_many(self, pairs, packed=False):
+        """pairs: list of (query, ref) strings → one cigar a pair (same
+        op/length convention as nw.nw_align): [(op, len)] lists, or with
+        packed=True read-only uint32 (len << 4) | op run arrays, the wire
+        msa_project_native takes. Pairs outside the buckets or with an
+        empty side go to nw_align."""
+        t0 = time.perf_counter()
         out = [None] * len(pairs)
         groups = {}
         for k, (q, r) in enumerate(pairs):
             bq = self._bucket(len(q))
             br = self._bucket(len(r))
             if bq is None or br is None or len(q) == 0 or len(r) == 0:
-                out[k] = nw_align(q, r, match=self.params[0],
-                                  mismatch=self.params[1],
-                                  gap_open=self.params[2],
-                                  gap_extend=self.params[3])[1]
+                cig = nw_align(q, r, match=self.params[0],
+                               mismatch=self.params[1],
+                               gap_open=self.params[2],
+                               gap_extend=self.params[3])[1]
+                out[k] = pack_cigar(cig) if packed else cig
             else:
                 groups.setdefault((bq, br), []).append(k)
+        self.timers["encode"] += time.perf_counter() - t0
+        # queue every launch, then wait once for the counts and once for
+        # the runs
+        queued = []
         for (Q, R), idxs in groups.items():
             per_launch = max(1, self.TB_CAP_BYTES // ((Q + 1) * (R + 1)))
             for lo in range(0, len(idxs), per_launch):
-                self._align_bucket(pairs, idxs[lo : lo + per_launch], Q, R,
-                                   out)
+                sub = idxs[lo : lo + per_launch]
+                queued.append((sub, *self._launch(pairs, sub, Q, R)))
+        t1 = time.perf_counter()
+        self._sync()
+        cut = []
+        for sub, runs, counts in queued:
+            counts = counts.numpy()
+            if (counts < 0).any():
+                raise RuntimeError("nw_cigar: an op stream reads past its "
+                                   "pair's bytes")
+            cut.append((sub, counts, _to_host(runs[:, : int(counts.max())])))
+        self._sync()
+        for sub, counts, runs in cut:
+            h = runs.numpy().view(np.uint32).copy()
+            h.flags.writeable = False
+            if packed:
+                for b, k in enumerate(sub):
+                    out[k] = h[b, : counts[b]]
+            else:
+                ops_l, lens_l = (h & 0xF).tolist(), (h >> 4).tolist()
+                for b, k in enumerate(sub):
+                    n = counts[b]
+                    out[k] = list(zip(ops_l[b][:n], lens_l[b][:n]))
+        self.timers["device"] += time.perf_counter() - t1
         return out
 
-    def _align_bucket(self, pairs, idxs, Q, R, out):
-        qcodes, rcodes, qlens, rlens = encode_pairs([pairs[k] for k in idxs],
-                                                    Q, R)
+    def _launch(self, pairs, idxs, Q, R):
+        """Encode one launch's pairs and queue K1, K2 and K4; returns the
+        runs on the device and the counts' queued host copy."""
+        t0 = time.perf_counter()
+        qraw, qlens = pad_bytes([pairs[k][0] for k in idxs], Q)
+        rraw, rlens = pad_bytes([pairs[k][1] for k in idxs], R)
+        qcodes, rcodes = _CHAR_CODE[qraw], _CHAR_CODE[rraw]
+        t1 = time.perf_counter()
+        self.timers["encode"] += t1 - t0
         dev = self.device
-        tb = nw_tb(torch.from_numpy(qcodes).to(dev),
-                   torch.from_numpy(rcodes).to(dev), *self.params)
-        T = 2 * (Q + R) + 2
-        em = nw_walk(tb, torch.from_numpy(qlens), torch.from_numpy(rlens),
-                     T).cpu().numpy()
-        for b, k in enumerate(idxs):
-            codes = em[b]
-            codes = codes[codes > 0][::-1]
-            walk = [("diz"[c - 1], 0, 0) for c in codes]
-            out[k] = refine_diag_ops(_walk_to_cigar(walk), *pairs[k])
+        up = lambda a: torch.from_numpy(a).to(dev)
+        tb = nw_tb(up(qcodes), up(rcodes), *self.params)
+        ops = nw_walk(tb, torch.from_numpy(qlens), torch.from_numpy(rlens),
+                      2 * (Q + R) + 2)
+        runs, counts = nw_cigar(ops, up(qraw), up(rraw))
+        self.timers["device"] += time.perf_counter() - t1
+        return runs, _to_host(counts)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
 
 def _walk_to_cigar(walk):
+    """A walk's ops merged into runs, diagonal runs as placeholders (-1);
+    with refine_diag_ops, the host oracle of K4, called by tests only."""
     cigar = []
     for kind, i, j in walk:
         if kind == "d":

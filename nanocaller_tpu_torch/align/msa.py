@@ -51,7 +51,8 @@ def msa_sample(seq_list, v_pos, maxcov):
 
 
 def star_msa_from_cigars(seqs, cigars, ref, mincov, use_native=True):
-    """Column projection + tensor given precomputed read-vs-ref cigars.
+    """Column projection + tensor given precomputed read-vs-ref cigars
+    ([(op, len)] lists or packed uint32 (len<<4|op) run arrays).
 
     Runs the C++ projection of io/native (ncio_msa_project); the numpy
     path below, taken with use_native=False, is its bit-identical oracle.
@@ -78,10 +79,12 @@ def project_alignments(seqs, cigars, ref):
     columns precedes ref column j; a trailing block sits after the last
     ref position. Inserted bases are left-aligned in their block.
     """
+    from .nw import unpack_cigar
+
     m = len(ref)
     ins_len = np.zeros(m + 1, dtype=np.int64)
     parsed = []
-    for seq, cigar in zip(seqs, cigars):
+    for seq, cigar in zip(seqs, map(unpack_cigar, cigars)):
         qi = ri = 0
         events = []  # (anchor_ref_pos, kind, payload)
         for op, l in cigar:

@@ -133,3 +133,18 @@ def _traceback(tb, q, r):
         else:
             cigar.append([op, 1])
     return [(op, l) for op, l in cigar]
+
+
+def pack_cigar(cigar):
+    """[(op, len)] → read-only uint32 (len<<4|op) run array."""
+    arr = np.fromiter(((l << 4) | op for op, l in cigar), np.uint32,
+                      len(cigar))
+    arr.flags.writeable = False
+    return arr
+
+
+def unpack_cigar(arr):
+    """uint32 (len<<4|op) run array → [(op, len)] (identity on lists)."""
+    if not isinstance(arr, np.ndarray):
+        return arr
+    return list(zip((arr & 0xF).tolist(), (arr >> 4).tolist()))

@@ -10,10 +10,16 @@ PyTorch twins, and the nvcc build of every kernel of the port.
 - K2 `nw_walk` (csrc/nw_walk.cu) replaces
   nanocaller_tpu/align/batch_nw.py::_walk_device: the traceback walk,
   returning the (B, T) int8 op stream.
+- K4 `nw_cigar` (csrc/nw_cigar.cu) replaces the host walk of that
+  stream in nanocaller_tpu/align/batch_nw.py::BatchAligner.align_many
+  (`_walk_to_cigar` + `refine_diag_ops`): K2's op stream and the pairs'
+  raw bytes in, each pair's packed (len << 4) | op runs and their count
+  out, on the card.
 
-Each wrapper takes its plain twin (`nw_tb_reference`, `nw_walk_reference`)
-only for a tensor on the CPU; for a CUDA tensor it launches its kernel or
-raises. Every source in SOURCES (these two and K3 csrc/snp_pileup.cu,
+Each wrapper takes its plain twin (`nw_tb_reference`, `nw_walk_reference`,
+`nw_cigar_reference`) only for a tensor on the CPU; for a CUDA tensor it
+launches its kernel or raises. Every source in SOURCES (these three and
+K3 csrc/snp_pileup.cu,
 whose wrapper is pileup/snp_pileup.py) is built at first use with nvcc
 for sm_90a into nanocaller_tpu_torch/_build/ (a directory .gitignore
 lists), into one library named by the hash of the sources, and loaded
@@ -35,7 +41,7 @@ NEG = -(1 << 28)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in
-                ("nw_tb.cu", "nw_walk.cu", "snp_pileup.cu"))
+                ("nw_tb.cu", "nw_walk.cu", "nw_cigar.cu", "snp_pileup.cu"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -43,15 +49,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launch counters: each wrapper adds one where it launches its kernel
 NW_TB_LAUNCHES = 0
 NW_WALK_LAUNCHES = 0
+NW_CIGAR_LAUNCHES = 0
 # pairs whose DP ran in K1 (the sum of B over K1 launches)
 NW_TB_PAIRS = 0
+# {(kernel, Q, R): [launches, pairs]} of K1, K2 and K4, added to beside
+# their launch counters
+BY_BUCKET = {}
 
 _LIB = None
 
 
 def reset_counters():
-    global NW_TB_LAUNCHES, NW_WALK_LAUNCHES, NW_TB_PAIRS
-    NW_TB_LAUNCHES = NW_WALK_LAUNCHES = NW_TB_PAIRS = 0
+    global NW_TB_LAUNCHES, NW_WALK_LAUNCHES, NW_CIGAR_LAUNCHES, NW_TB_PAIRS
+    NW_TB_LAUNCHES = NW_WALK_LAUNCHES = NW_CIGAR_LAUNCHES = NW_TB_PAIRS = 0
+    BY_BUCKET.clear()
+
+
+def _count_bucket(kernel, Q, R, B):
+    row = BY_BUCKET.setdefault((kernel, Q, R), [0, 0])
+    row[0] += 1
+    row[1] += B
 
 
 def _nvcc():
@@ -107,6 +124,8 @@ def _lib():
         lib.nw_tb_launch.restype = i
         lib.nw_walk_launch.argtypes = [p, p, p, i, i, i, i, p]
         lib.nw_walk_launch.restype = i
+        lib.nw_cigar_launch.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.nw_cigar_launch.restype = i
         # the wire's 18 arrays, N S T M, the rows' 7 arrays, deep_w B,
         # the three outputs and the stream
         lib.snp_pileup_launch.argtypes = [p] * 18 + [i] * 4 + [p] * 7 \
@@ -161,6 +180,7 @@ def nw_tb(qcodes, rcodes, match, mismatch, gap_open, gap_extend):
         raise RuntimeError("nw_tb launch failed: cudaError %d" % rc)
     NW_TB_LAUNCHES += 1
     NW_TB_PAIRS += B
+    _count_bucket("nw_tb", Q, R, B)
     return tb
 
 
@@ -255,6 +275,7 @@ def nw_walk(tb, qlens, rlens, T):
     if rc != 0:
         raise RuntimeError("nw_walk launch failed: cudaError %d" % rc)
     NW_WALK_LAUNCHES += 1
+    _count_bucket("nw_walk", Q1 - 1, R1 - 1, B)
     return ops
 
 
@@ -291,3 +312,91 @@ def nw_walk_reference(tb, qlens, rlens, T):
             tost, src, torch.where(s1 & ((cell & 4) == 0), 0, torch.where(
                 s2 & ((cell & 8) == 0), 0, state)))))
     return ops
+
+
+# -- K4: op stream to packed cigar runs ---------------------------------------
+
+def nw_cigar(ops, qraw, rraw):
+    """ops (B, T) int8 (K2's op stream), qraw (B, Q) and rraw (B, R) uint8
+    (the pairs' bytes, zero-padded) → (runs (B, Q+R) int32, counts (B,)
+    int32): row b's first counts[b] entries are its cigar, the maximal
+    runs of '=' 7 / 'X' 8 / 'I' 1 / 'D' 2 packed (len << 4) | op in
+    forward order, as refine_diag_ops(_walk_to_cigar(...)) gives them; a
+    diagonal step is '=' only for equal bytes in "ACGT". The rest of a row
+    is unspecified. counts[b] is -1 for a stream that reads past Q or R or
+    holds a code outside 0-3; the caller raises on it."""
+    global NW_CIGAR_LAUNCHES
+    _check(ops, "ops", torch.int8, 2)
+    _check(qraw, "qraw", torch.uint8, 2)
+    _check(rraw, "rraw", torch.uint8, 2)
+    B, T = ops.shape
+    Q, R = qraw.shape[1], rraw.shape[1]
+    if qraw.shape[0] != B or rraw.shape[0] != B or not (
+            ops.device == qraw.device == rraw.device):
+        raise ValueError("nw_cigar: batch or device mismatch")
+    if Q < 1 or R < 1:
+        raise ValueError("nw_cigar: need Q >= 1 and R >= 1 (Q=%d, R=%d)"
+                         % (Q, R))
+    if ops.device.type == "cpu":
+        return nw_cigar_reference(ops, qraw, rraw)
+    runs = torch.empty((B, Q + R), dtype=torch.int32, device=ops.device)
+    counts = torch.empty(B, dtype=torch.int32, device=ops.device)
+    if B == 0:
+        return runs, counts
+    lib = _lib()
+    with torch.cuda.device(ops.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.nw_cigar_launch(ops.data_ptr(), qraw.data_ptr(),
+                                 rraw.data_ptr(), runs.data_ptr(),
+                                 counts.data_ptr(), B, T, Q, R, stream)
+    if rc != 0:
+        raise RuntimeError("nw_cigar launch failed: cudaError %d" % rc)
+    NW_CIGAR_LAUNCHES += 1
+    _count_bucket("nw_cigar", Q, R, B)
+    return runs, counts
+
+
+# "ACGT" bytes: the only ones a diagonal step may call '='
+_ACGT = torch.zeros(256, dtype=torch.bool)
+_ACGT[[ord(c) for c in "ACGT"]] = True
+
+
+def nw_cigar_reference(ops, qraw, rraw):
+    """Plain PyTorch twin of K4, vectorised over the batch: the non-zero
+    ops moved to the front of each row in start-to-end order, the query
+    and reference index of each step by prefix sums, the op of each step,
+    and its maximal runs by a scatter-add over run ids. Same inputs and
+    output; the rows' unused entries are 0."""
+    B, T = ops.shape
+    Q, R = qraw.shape[1], rraw.shape[1]
+    dev = ops.device
+    i64 = torch.int64
+    o = ops.flip(1).to(i64)
+    # the non-zero steps first, in order (a stable sort on "is zero")
+    o = o.gather(1, torch.sort((o == 0).to(torch.int8), dim=1,
+                               stable=True).indices)
+    valid = o != 0
+    useq = (o == 1) | (o == 2)
+    user = (o == 1) | (o == 3)
+    bad = ((o < 0) | (o > 3)).any(1) | (useq.sum(1) > Q) | \
+        (user.sum(1) > R)
+    qi = (torch.cumsum(useq, 1) - useq.to(i64)).clamp(max=Q - 1)
+    ri = (torch.cumsum(user, 1) - user.to(i64)).clamp(max=R - 1)
+    a = qraw.to(i64).gather(1, qi)
+    e = rraw.to(i64).gather(1, ri)
+    same = (a == e) & _ACGT.to(dev)[a]
+    op = torch.where(o == 1, torch.where(same, 7, 8),
+                     torch.where(o == 2, 1, 2))
+    op = torch.where(valid, op, 0)
+    prev = torch.cat([torch.zeros((B, 1), dtype=i64, device=dev),
+                      op[:, :-1]], 1)
+    start = valid & (op != prev)
+    counts = start.sum(1)
+    rid = (torch.cumsum(start, 1) - 1).clamp(min=0)
+    lens = torch.zeros((B, T), dtype=i64, device=dev).scatter_add_(
+        1, rid, valid.to(i64))
+    ops_of = torch.zeros((B, T), dtype=i64, device=dev).scatter_add_(
+        1, rid, torch.where(start, op, 0))
+    runs = ((lens << 4) | ops_of)[:, : Q + R].to(torch.int32)
+    counts = torch.where(bad, -1, counts).to(torch.int32)
+    return runs, counts

@@ -27,7 +27,7 @@ haplotags, the phased VCF and the artifact, written on a thread while
 the indel stage runs.
 Indels: BAM/CRAM → candidates (host decode + scan, the phasing's
 haplotags injected in memory) → read-vs-ref and allele NW on the device
-(kernels K1 + K2) → indel CNN → decode → rtg-style decomposition. In
+(kernels K1, K2, K4) → indel CNN → decode → rtg-style decomposition. In
 `--mode indels` the input's own HP/PS tags are read, as the reference's
 indel stage does.
 
@@ -37,7 +37,7 @@ phasing of each diploid contig, and the indel candidates' MSA jobs. This
 process owns the device: it runs K3 and the SNP CNN on each payload as
 it arrives, and gathers the workers' indel jobs, contig by contig in
 chunk order, into finish_indel_jobs (every pending chunk's pairs in one
-K1 + K2 round) and the indel CNN. With phasing (`--mode all`, `snps
+K1/K2/K4 round) and the indel CNN. With phasing (`--mode all`, `snps
 --phase`) the stages form a per-contig DAG: a contig's indel chunks
 start the moment its phasing is done, while other contigs still phase
 (_run_phase_indel_dag).
@@ -319,9 +319,10 @@ class _IndelSink:
     hold _FLUSH_AT candidates, then runs one CNN pass over them.
     add_record (--cpu N) takes a worker's job record in completion order
     and moves it into its contig's queue in chunk order; a contig's queue
-    is finished (finish_indel_jobs: one K1 + K2 round over all its pairs,
-    timer `indel.align_finish`) and sent through the CNN once it holds
-    _FLUSH_AT jobs or the contig's last chunk. What shares a device pass
+    is finished (finish_indel_jobs: one K1/K2/K4 round over all its pairs,
+    timer `indel.align_finish`, split in `indel.align_finish.*`) and sent
+    through the CNN once it holds _FLUSH_AT jobs or the contig's last
+    chunk. What shares a device pass
     therefore depends on the data only, never on the order of arrival,
     and two runs give the same bytes."""
 
@@ -408,7 +409,8 @@ class _IndelSink:
             return
         with self.metrics.timer("indel.align_finish"):
             batches = finish_indel_jobs([r for _, r in ready],
-                                        device=self.state.device)
+                                        device=self.state.device,
+                                        timers=self.metrics.timers)
         for (idx, _), batch in zip(ready, batches):
             self.add_batch(idx, batch)
         self.flush()
@@ -475,7 +477,7 @@ def _call_indels(cfg, state, bam, fasta, regions_list, contigs, exclude,
                         exclude=exclude,
                         ploidy=chunk.get("ploidy", "diploid"),
                         tags=tags_by_contig.get(chunk["chrom"]),
-                        device=state.device)
+                        device=state.device, timers=metrics.timers)
                 sink.add_batch(idx, batch)
         chunk_lines = sink.chunk_lines()
     metrics.count("indel_chunks", len(ordered_chunks))
@@ -495,7 +497,7 @@ def _run_phase_indel_dag(cfg, state, bam, snp_vcf, contigs, regions_list,
     A haploid contig is copied unphased and unlocked at once. A phased
     contig's artifact is written on a thread of this process. This
     process owns the device: the workers' job records go through the
-    _IndelSink (finish_indel_jobs on K1 + K2, then the indel CNN). A
+    _IndelSink (finish_indel_jobs on K1/K2/K4, then the indel CNN). A
     stage timeline lands in metrics.json (stage_timeline).
 
     Returns {"phased_files": [...ordered...], "chunk_lines": [...]}."""

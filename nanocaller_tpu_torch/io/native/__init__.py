@@ -511,7 +511,9 @@ def msa_project_native(read_codes_list, cigars, ref_codes, width=128):
     codes_cat = (np.concatenate(read_codes_list).astype(np.int8)
                  if n and read_off[-1] else np.zeros(1, np.int8))
     if n and cigars and isinstance(cigars[0], np.ndarray):
-        runs = (np.concatenate(cigars).astype(np.uint32)
+        # the packed wire (BatchAligner.align_many(packed=True)): one
+        # concatenation, no per-run Python
+        runs = (np.concatenate(cigars).astype(np.uint32, copy=False)
                 if cig_off[-1] else np.zeros(1, np.uint32))
     else:
         runs = np.zeros(max(1, int(cig_off[-1])), np.uint32)

@@ -29,11 +29,13 @@ Pass 2 is split at the alignments: collect_msa_jobs runs on the host
 without torch (what the `--cpu N` feature workers run, per chunk or per
 shared-decode group) and returns picklable job records; finish_indel_jobs
 runs in the process that owns the device and aligns the pairs of any
-number of records in one K1 + K2 round per alignment kind.
+number of records in one K1/K2/K4 round per alignment kind.
 """
 
 from __future__ import annotations
 
+import time
+from collections import defaultdict
 from dataclasses import dataclass
 
 import numpy as np
@@ -463,15 +465,16 @@ def get_indel_candidates(bam, fasta, chunk, *, seq_type="ont", mincov=4,
                          maxcov=160, ins_t=0.4, del_t=0.6, win_size=40,
                          small_win_size=4, impute_indel_phase=False,
                          exclude=None, ploidy="diploid", rw=None, tags=None,
-                         device="cuda"):
+                         device="cuda", timers=None):
     """Full indel feature generation for one chunk (1-based chunk coords):
-    collect_chunk_jobs on the host, then finish_indel_jobs on `device`.
+    collect_chunk_jobs on the host, then finish_indel_jobs on `device`
+    (timers: as finish_indel_jobs takes them).
 
     Diploid returns IndelBatch; haploid returns HaploidIndelBatch.
     All read-vs-ref MSA alignments and consensus-vs-ref allele
     alignments of the chunk go through the port's BatchAligner on
-    `device` (kernels K1 + K2 on "cuda", their plain twins on "cpu");
-    cigars are identical to nw.nw_align's.
+    `device` (kernels K1, K2 and K4 on "cuda", their plain twins on
+    "cpu"); cigars are identical to nw.nw_align's.
     """
     rec = collect_chunk_jobs(
         bam, fasta, chunk, seq_type=seq_type, mincov=mincov, maxcov=maxcov,
@@ -479,7 +482,7 @@ def get_indel_candidates(bam, fasta, chunk, *, seq_type="ont", mincov=4,
         small_win_size=small_win_size,
         impute_indel_phase=impute_indel_phase, exclude=exclude,
         ploidy=ploidy, rw=rw, tags=tags)
-    return finish_indel_jobs([rec], device=device)[0]
+    return finish_indel_jobs([rec], device=device, timers=timers)[0]
 
 
 def _inject_tags(rw, tags):
@@ -736,30 +739,42 @@ def n_jobs(records):
     return sum(len(r["jobs"]) for r in records)
 
 
-def finish_indel_jobs(records, device="cuda"):
+def finish_indel_jobs(records, device="cuda", timers=None):
     """Pass 2 after phase A, in the process that owns the device, for
     the job records of any number of chunks (collect_msa_jobs).
 
     Round 1 aligns the read-vs-ref pairs of every record in one
-    BatchAligner.align_many call (K1 + K2 on "cuda", their plain twins on
-    "cpu"); then the MSA projection and consensus of each job; round 2
-    aligns every record's consensus-vs-ref allele pairs in one call; then
-    the allele prediction and the tensors. A pair's cigar does not depend
-    on the pairs it shares a launch with, so each record's batch equals
-    the one it would get alone. Returns one IndelBatch (HaploidIndelBatch
-    for a haploid record) per record."""
+    BatchAligner.align_many call (K1, K2 and K4 on "cuda", their plain
+    twins on "cpu"), into packed run arrays; then the MSA projection and
+    consensus of each job; round 2 aligns every record's
+    consensus-vs-ref allele pairs in one call; then the allele prediction
+    and the tensors. A pair's cigar does not depend on the pairs it
+    shares a launch with, so each record's batch equals the one it would
+    get alone. Returns one IndelBatch (HaploidIndelBatch for a haploid
+    record) per record.
+
+    timers: a defaultdict(float) (metrics.timers) that gets the seconds of
+    round 1's encoding (`indel.align_finish.encode`) and its launches,
+    copies and split (`.kernels`), of the MSA projection (`.msa`) and of
+    round 2 with the allele prediction and tensors (`.alleles`)."""
     from ..align.batch_nw import BatchAligner
     from ..align.msa import (MSA_GAP_EXTEND, MSA_GAP_OPEN, MSA_MATCH,
                              MSA_MISMATCH, star_msa_from_cigars)
 
     keys_of = lambda rec: ("tot",) if rec["haploid"] else ("h0", "h1", "tot")
+    timers = defaultdict(float) if timers is None else timers
+    clock = time.perf_counter
 
     # round 1: every record's read-vs-ref alignments in one device sweep
     pairs = [(s, job["ref"]) for rec in records for job in rec["jobs"]
              for key in keys_of(rec) for s in job["seqs"][key]]
-    flat = iter(BatchAligner(match=MSA_MATCH, mismatch=MSA_MISMATCH,
-                             gap_open=MSA_GAP_OPEN, gap_extend=MSA_GAP_EXTEND,
-                             device=device).align_many(pairs))
+    aligner = BatchAligner(match=MSA_MATCH, mismatch=MSA_MISMATCH,
+                           gap_open=MSA_GAP_OPEN, gap_extend=MSA_GAP_EXTEND,
+                           device=device)
+    flat = iter(aligner.align_many(pairs, packed=True))
+    timers["indel.align_finish.encode"] += aligner.timers["encode"]
+    timers["indel.align_finish.kernels"] += aligner.timers["device"]
+    t0 = clock()
 
     # column projection + consensus per job, then round 2: allele NW
     per_rec = []
@@ -781,10 +796,14 @@ def finish_indel_jobs(records, device="cuda"):
                     _, _, _, cns, ref_d = res[key]
                     allele_pairs.append((cns, ref_d))
         per_rec.append(per_job)
+    t1 = clock()
     allele_cigars = iter(BatchAligner(device=device).align_many(
         [(a or "", b or "") for a, b in allele_pairs]))
-    return [_assemble_batch(rec, per_job, keys_of(rec), allele_cigars)
-            for rec, per_job in zip(records, per_rec)]
+    out = [_assemble_batch(rec, per_job, keys_of(rec), allele_cigars)
+           for rec, per_job in zip(records, per_rec)]
+    timers["indel.align_finish.msa"] += t1 - t0
+    timers["indel.align_finish.alleles"] += clock() - t1
+    return out
 
 
 def _assemble_batch(rec, per_job, group_keys, allele_cigars):

@@ -5,7 +5,7 @@ work fans out to N worker processes (started with `spawn` by
 runtime/scheduler.py): the SNP group payloads, the per-contig phasing
 and the indel job records. A worker stops before anything that runs on
 the device: it returns the indel candidates' MSA jobs, and the main
-process aligns every worker's pairs on the card (kernels K1 + K2,
+process aligns every worker's pairs on the card (kernels K1, K2, K4,
 pileup/indel_features.finish_indel_jobs) and builds the SNP pileups
 (kernel K3). A worker that imported torch could create a CUDA context
 and hold card memory, so this module and everything it imports use only

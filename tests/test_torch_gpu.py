@@ -1,16 +1,18 @@
 """The CUDA kernels against their plain twins on the card, exactly.
 K1 (nw_tb) and K2 (nw_walk): at the main path's buckets, at the edges of
 K1's 32-lane column strips, with a batch that leaves the last CTA part
-empty, with pad codes, and on tie-heavy pairs. K3 (snp_pileup), on its
-three outputs: normal, deep and haploid cohorts of a simulated group,
-random payloads (holes, dense exceptions, reads out of start order, a
-read over every site, every band schedule, clamped windows), one row,
-rows without neighbours, at the first and last site, deep rows with no
-valid id, windows longer than the kernel's list, and the wrapper's
-refusals; a SNP decode group over the payload caps, sent member by member
-(one K3 launch a member), against its uncapped run; `--mode all --cpu 2`
-on cuda against cpu, with no CUDA context in a worker. Skips without a
-GPU.
+empty, with pad codes, and on tie-heavy pairs. K4 (nw_cigar): at every
+bucket, on bytes with soft-masked (lowercase) stretches and N, empty
+sides, long runs, bad streams; BatchAligner's packed runs. K3
+(snp_pileup), on its three outputs: normal, deep and haploid cohorts of
+a simulated group, random payloads (holes, dense exceptions, reads out
+of start order, a read over every site, every band schedule, clamped
+windows), one row, rows without neighbours, at the first and last site,
+deep rows with no valid id, windows longer than the kernel's list, and
+the wrapper's refusals; a SNP decode group over the payload caps, sent
+member by member (one K3 launch a member), against its uncapped run;
+`--mode all --cpu 2` on cuda against cpu, with no CUDA context in a
+worker. Skips without a GPU.
 
 Imports neither jax nor the JAX package, so that it also runs where only
 the port is installed: `python -m pytest --noconftest tests/test_torch_gpu.py`.
@@ -24,8 +26,9 @@ import pytest
 import torch
 
 from nanocaller_tpu_torch.align import nw_kernels as K
-from nanocaller_tpu_torch.align.batch_nw import BatchAligner, encode_pairs
-from nanocaller_tpu_torch.align.nw import nw_align
+from nanocaller_tpu_torch.align.batch_nw import (BatchAligner, encode_pairs,
+                                                 pad_bytes)
+from nanocaller_tpu_torch.align.nw import nw_align, unpack_cigar
 from nanocaller_tpu_torch.io.bam import BamReader
 from nanocaller_tpu_torch.io.fasta import FastaFile, write_fasta
 from nanocaller_tpu_torch.pileup import snp_pileup as K3
@@ -143,6 +146,85 @@ def test_batch_aligner_cigars_on_card():
     got = BatchAligner(device="cuda").align_many(pairs)
     assert K.NW_TB_LAUNCHES > before
     assert got == [nw_align(q, r)[1] for q, r in pairs]
+
+
+def _cigar_case(rng, B, Q, R):
+    """B pairs for one bucket as raw bytes: mutated windows with random
+    lowercase and N bytes, a long identical stretch, one empty side each
+    and both empty."""
+    pairs = []
+    for b in range(B):
+        n = int(rng.integers(1, min(Q, R) + 1))
+        r = "".join("ACGTNacgtn"[int(x)] for x in
+                    rng.choice(10, n, p=[.22] * 4 + [.02] + [.02] * 4
+                               + [.02]))
+        q = "".join(c if rng.random() > 0.1 else "ACGTa"[int(rng.integers(5))]
+                    for c in r[: int(rng.integers(0, n + 1))])
+        q += r[len(q):][: Q - len(q)] if b % 3 else ""
+        pairs.append((q[:Q], r))
+    pairs[:3] = [("", pairs[0][1]), (pairs[1][1][:Q], ""), ("", "")]
+    long = "ACGT" * (min(Q, R) // 4)
+    pairs[3] = (long, long)
+    return pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,R,B", [
+    (64, 64, 300), (128, 192, 300), (192, 192, 1024), (256, 320, 1024),
+    (320, 256, 131), (512, 512, 1024)])
+def test_cigar_kernel_matches_twin(Q, R, B):
+    _need_gpu()
+    rng = np.random.default_rng(Q * 3 + R + B)
+    pairs = _cigar_case(rng, B, Q, R)
+    qc, rc, ql, rl = encode_pairs(pairs, Q, R)
+    qraw, _ = pad_bytes([q for q, _ in pairs], Q)
+    rraw, _ = pad_bytes([r for _, r in pairs], R)
+    tb = K.nw_tb(torch.from_numpy(qc).cuda(), torch.from_numpy(rc).cuda(),
+                 *SCORINGS[1])
+    ops = K.nw_walk(tb, torch.from_numpy(ql), torch.from_numpy(rl),
+                    2 * (Q + R) + 2)
+    qd, rd = torch.from_numpy(qraw).cuda(), torch.from_numpy(rraw).cuda()
+    before = K.NW_CIGAR_LAUNCHES
+    runs, counts = K.nw_cigar(ops, qd, rd)
+    torch.cuda.synchronize()
+    assert K.NW_CIGAR_LAUNCHES == before + 1
+    w_runs, w_counts = K.nw_cigar_reference(ops, qd, rd)
+    assert torch.equal(counts, w_counts) and int(counts.min()) >= 0
+    keep = torch.arange(Q + R, device="cuda")[None, :] < counts[:, None]
+    assert torch.equal(torch.where(keep, runs, 0), w_runs)
+    assert int(counts[2]) == 0 and int((w_runs >> 4).max()) > 15
+
+
+@pytest.mark.cuda
+def test_cigar_kernel_flags_bad_streams():
+    _need_gpu()
+    ops = torch.zeros((3, 10), dtype=torch.int8)
+    ops[0, :4] = 1  # four diagonal steps for Q = 3
+    ops[1, 0] = 5
+    ops[2, 2:4] = torch.tensor([2, 1], dtype=torch.int8)
+    q = torch.full((3, 3), ord("A"), dtype=torch.uint8)
+    r = torch.full((3, 2), ord("A"), dtype=torch.uint8)
+    runs, counts = K.nw_cigar(ops.cuda(), q.cuda(), r.cuda())
+    assert counts.tolist() == [-1, -1, 2]
+    assert runs[2, :2].tolist() == [(1 << 4) | 7, (1 << 4) | 1]
+
+
+@pytest.mark.cuda
+def test_batch_aligner_packed_on_card():
+    """The packed runs from K4 unpack to the cuda path's lists and to the
+    cpu twins' runs, soft-masked and N bytes included."""
+    _need_gpu()
+    rng = np.random.default_rng(10)
+    pairs = _cigar_case(rng, 200, 192, 192) + _cigar_case(rng, 40, 256, 320)
+    before = K.NW_CIGAR_LAUNCHES
+    packed = BatchAligner(*SCORINGS[1], device="cuda").align_many(
+        pairs, packed=True)
+    assert K.NW_CIGAR_LAUNCHES > before
+    plain = BatchAligner(*SCORINGS[1], device="cuda").align_many(pairs)
+    cpu = BatchAligner(*SCORINGS[1], device="cpu").align_many(pairs,
+                                                              packed=True)
+    assert [unpack_cigar(c) for c in packed] == plain
+    assert all(np.array_equal(a, b) for a, b in zip(packed, cpu))
 
 
 class _Cfg:

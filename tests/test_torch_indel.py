@@ -3,6 +3,8 @@ tests/test_indel.py: candidate features (exact), CNN probabilities
 (atol 2e-5), and decode / decomposition lines (byte-identical given the
 same probabilities)."""
 
+from collections import defaultdict
+
 import numpy as np
 import pytest
 
@@ -16,7 +18,10 @@ from nanocaller_tpu_torch import indel_caller as P
 from nanocaller_tpu_torch.io.bam import BamReader
 from nanocaller_tpu_torch.io.fasta import FastaFile
 from nanocaller_tpu_torch.io.vcf import VcfRecord
-from nanocaller_tpu_torch.pileup.indel_features import get_indel_candidates
+from nanocaller_tpu_torch.align.batch_nw import BatchAligner
+from nanocaller_tpu_torch.pileup.indel_features import (collect_chunk_jobs,
+                                                        finish_indel_jobs,
+                                                        get_indel_candidates)
 
 from fixtures import make_fixture
 from test_decompose_fuzz import mk_rec, random_alt
@@ -68,6 +73,40 @@ def test_haploid_candidates_identical(batches):
     assert len(want) > 0 and got.pos == want.pos
     np.testing.assert_array_equal(got.x, want.x)
     assert got.alleles == want.alleles
+
+
+def test_tuple_cigars_give_the_same_batches(indel_fixture, batches,
+                                            monkeypatch):
+    """finish_indel_jobs takes packed run arrays for the MSA round; the
+    (op, len) lists of packed=False give the same batches, so the same
+    VCFs (tests/test_torch_all.py and test_torch_dag.py hold the packed
+    path's VCFs to the JAX CLI's)."""
+    fasta_p, bam_p = indel_fixture
+    recs = [collect_chunk_jobs(BamReader(bam_p), FastaFile(fasta_p), CHUNK,
+                               ploidy=p, **KW)
+            for p in ("diploid", "haploid")]
+    timers = defaultdict(float)
+    packed = finish_indel_jobs(recs, device="cpu", timers=timers)
+    assert set(timers) == {"indel.align_finish." + k for k in
+                           ("encode", "kernels", "msa", "alleles")}
+    seen = []
+    orig = BatchAligner.align_many
+
+    def tuples(self, pairs, packed=False):
+        seen.append(packed)
+        return orig(self, pairs, packed=False)
+
+    monkeypatch.setattr(BatchAligner, "align_many", tuples)
+    plain = finish_indel_jobs(recs, device="cpu")
+    assert seen == [True, False]  # the MSA round asked for packed runs
+    for got, (_, want) in zip((packed, plain), (batches["diploid"],) * 2):
+        assert got[0].pos == want.pos and got[0].alleles == want.alleles
+        for k in ("x0", "x1", "x2"):
+            np.testing.assert_array_equal(getattr(got[0], k),
+                                          getattr(want, k))
+    for got in (packed, plain):
+        np.testing.assert_array_equal(got[1].x, batches["haploid"][1].x)
+        assert got[1].alleles == batches["haploid"][1].alleles
 
 
 def test_probabilities_match(batches):

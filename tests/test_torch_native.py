@@ -17,7 +17,7 @@ import pytest
 from nanocaller_tpu_torch.align.msa import (MSA_GAP_EXTEND, MSA_GAP_OPEN,
                                             MSA_MATCH, MSA_MISMATCH,
                                             star_msa_from_cigars)
-from nanocaller_tpu_torch.align.nw import nw_align
+from nanocaller_tpu_torch.align.nw import nw_align, pack_cigar
 from nanocaller_tpu_torch.caller import write_haplotagged_bam
 from nanocaller_tpu_torch.io import native as N
 from nanocaller_tpu_torch.io.bam import AlignedRead, BamReader, BamWriter
@@ -241,6 +241,27 @@ def test_msa_projection_native_matches_numpy():
         b = star_msa_from_cigars(seqs, cigars, ref, 2, use_native=False)
         assert np.array_equal(a[2], b[2]), trial
         assert (a[3], a[4]) == (b[3], b[4]), trial
+
+
+def test_msa_projection_takes_packed_runs():
+    """The packed wire of BatchAligner.align_many(packed=True) gives the
+    tuple lists' tensor and consensus, on the native route and the numpy
+    oracle alike."""
+    rng = np.random.default_rng(8)
+    for trial in range(10):
+        ref = "".join(rng.choice(list("ACGT"), int(rng.integers(40, 200))))
+        seqs = [ref[: int(rng.integers(5, len(ref)))] + "ACG"
+                for _ in range(int(rng.integers(2, 12)))]
+        cigars = [nw_align(s, ref, match=MSA_MATCH, mismatch=MSA_MISMATCH,
+                           gap_open=MSA_GAP_OPEN,
+                           gap_extend=MSA_GAP_EXTEND)[1] for s in seqs]
+        packed = [pack_cigar(c) for c in cigars]
+        want = star_msa_from_cigars(seqs, cigars, ref, 2)
+        for got in (star_msa_from_cigars(seqs, packed, ref, 2),
+                    star_msa_from_cigars(seqs, packed, ref, 2,
+                                         use_native=False)):
+            assert np.array_equal(got[2], want[2]), trial
+            assert (got[3], got[4]) == (want[3], want[4]), trial
 
 
 def _block(seed, depth, n_sites):

@@ -1,7 +1,9 @@
 """The port's NW kernels' plain twins and BatchAligner against the JAX
 package: K1's twin against _batch_nw and the interpret-mode Pallas
-kernel, K2's twin against _walk_device (exact), cigars against nw_align.
-The CUDA kernels against their twins: tests/test_torch_gpu.py."""
+kernel, K2's twin against _walk_device (exact), K4's twin against the
+host walk refine_diag_ops(_walk_to_cigar(...)) and nw_align, cigars
+against nw_align, packed and not. The CUDA kernels against their twins:
+tests/test_torch_gpu.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +16,10 @@ from nanocaller_tpu.align.pallas_nw import batch_nw_tb_pallas
 from nanocaller_tpu_torch.align import nw_kernels as K
 from nanocaller_tpu_torch.align.batch_nw import (BatchAligner,
                                                  _traceback_matrix,
-                                                 encode_pairs)
+                                                 _walk_to_cigar,
+                                                 encode_pairs, pad_bytes,
+                                                 refine_diag_ops)
+from nanocaller_tpu_torch.align.nw import pack_cigar, unpack_cigar
 from nanocaller_tpu_torch.sim import TIE_KINDS, tie_heavy_pairs
 
 from torch_threads import _torch_threads  # noqa: F401 (autouse)
@@ -189,3 +194,141 @@ class TestBatchAligner:
         assert calls == [3, 3, 1]
         assert got == [nw_align(q, r)[1] for q, r in pairs]
 
+
+    @pytest.mark.parametrize("params", SCORINGS)
+    def test_packed_equals_unpacked(self, params):
+        """packed=True gives read-only uint32 runs that unpack to the
+        packed=False cigars, out-of-bucket and empty pairs included."""
+        rng = np.random.default_rng(13)
+        pairs = self._pairs(rng, [5, 64, 150, 300, 511])
+        pairs += [("ACGT" * 140, "ACGTT" * 110), ("", "ACGT"), ("ACG", ""),
+                  ("", ""), ("NNacgTN", "ACGTacgN")]
+        al = BatchAligner(*params, device="cpu")
+        plain = al.align_many(pairs)
+        packed = al.align_many(pairs, packed=True)
+        assert all(isinstance(c, np.ndarray) and c.dtype == np.uint32
+                   and not c.flags.writeable for c in packed)
+        assert [unpack_cigar(c) for c in packed] == plain
+        assert all(np.array_equal(c, pack_cigar(p))
+                   for c, p in zip(packed, plain))
+        assert al.timers["encode"] > 0 and al.timers["device"] > 0
+
+
+def _host_walk(ops_row, q, r):
+    """The host walk K4 replaces, from one row of K2's op stream."""
+    codes = [int(c) for c in ops_row if c][::-1]
+    return refine_diag_ops(
+        _walk_to_cigar([("diz"[c - 1], 0, 0) for c in codes]), q, r)
+
+
+def _refined(cigar, q, r):
+    """nw_align's cigar with its diagonal steps called by bytes ('=' only
+    for equal bytes in "ACGT"), as the host walk and K4 call them."""
+    walk = [("d" if op in (7, 8) else "i" if op == 1 else "z", 0, 0)
+            for op, n in cigar for _ in range(n)]
+    return refine_diag_ops(_walk_to_cigar(walk), q, r)
+
+
+def _soft(rng, s, lo, hi):
+    """s with [lo, hi) lowercased (a soft-masked stretch)."""
+    return s[:lo] + s[lo:hi].lower() + s[hi:]
+
+
+def _cigar_pairs(rng, Q, R):
+    """Pairs for one bucket: mutated windows; soft-masked stretches in the
+    reference, the query or both; N bytes on either side; a long match
+    (a run over 15) and a long deletion and insertion; one empty side
+    each (an all-gap walk) and both empty."""
+    n = min(Q, R)
+    base = _seq(rng, n)
+    pairs = [(_mutate(rng, base)[:Q], base)]
+    pairs.append((_mutate(rng, base, 0.03)[:Q], _soft(rng, base, 5, 60)))
+    low = _soft(rng, base, 10, n - 10)
+    pairs.append((low, low))
+    pairs.append((_soft(rng, _mutate(rng, base, 0.05)[:Q], 0, 30), base))
+    nb = list(base)
+    for k in rng.integers(0, n, 6):
+        nb[k] = "N"
+    nq = list(_mutate(rng, base, 0.05)[:Q])
+    for k in rng.integers(0, len(nq), 4):
+        nq[k] = rng.choice(["N", "n"])
+    pairs.append(("".join(nq), "".join(nb)))
+    pairs.append((base[: n // 3] + base[n // 3 + 25 :], base))  # D run 25
+    ins = _seq(rng, 20)
+    pairs.append(((base[: n // 2] + ins + base[n // 2 :])[:Q], base))
+    pairs += [("", base), (base[:Q], ""), ("", "")]
+    return pairs
+
+
+class TestCigarTwin:
+    @pytest.mark.parametrize(
+        "Q,R", [(64, 64), (128, 192), (192, 192), (256, 320), (320, 256),
+                (512, 512)])
+    @pytest.mark.parametrize("params", SCORINGS, ids=["allele", "msa"])
+    def test_vs_host_walk_and_nw_align(self, Q, R, params):
+        rng = np.random.default_rng(Q * 7 + R)
+        pairs = _cigar_pairs(rng, Q, R)
+        qraw, qlens = pad_bytes([q for q, _ in pairs], Q)
+        rraw, rlens = pad_bytes([r for _, r in pairs], R)
+        qc, rc, _, _ = encode_pairs(pairs, Q, R)
+        tb = K.nw_tb(torch.from_numpy(qc), torch.from_numpy(rc), *params)
+        ops = K.nw_walk(tb, torch.from_numpy(qlens), torch.from_numpy(rlens),
+                        2 * (Q + R) + 2)
+        runs, counts = K.nw_cigar(ops, torch.from_numpy(qraw),
+                                  torch.from_numpy(rraw))
+        assert runs.dtype == torch.int32 and runs.shape == (len(pairs),
+                                                            Q + R)
+        m, x, go, ge = params
+        long_runs = 0
+        for b, (q, r) in enumerate(pairs):
+            got = runs[b, : counts[b]].numpy().view(np.uint32)
+            want = _host_walk(ops[b].numpy(), q, r)
+            assert unpack_cigar(got) == want, (b, q, r)
+            ref = nw_align(q, r, match=m, mismatch=x, gap_open=go,
+                           gap_extend=ge)[1]
+            if q.upper() == q and r.upper() == r:
+                assert want == ref  # no soft-masked byte: nw_align's own
+            else:  # nw_align calls a/a '=' (K1's codes fold the case)
+                assert want == _refined(ref, q, r)
+            long_runs += sum(1 for _, n in want if n > 15)
+        assert long_runs >= 3
+        # the soft-masked identical pair: its lowercase stretch is 'X'
+        n = min(Q, R)
+        row = lambda b: unpack_cigar(runs[b, : counts[b]].numpy().view(
+            np.uint32))
+        assert row(2) == [(7, 10), (8, n - 20), (7, 10)]
+        # one empty side walks all gaps; both empty, no op
+        assert row(-3) == [(2, n)] and row(-2) == [(1, n)]
+        assert counts[-1] == 0
+
+    def test_bad_streams_give_minus_one(self):
+        """A stream that reads past Q or R, or holds a code outside 0-3,
+        counts -1 (BatchAligner raises on it)."""
+        ops = torch.zeros((4, 10), dtype=torch.int8)
+        ops[0, :4] = 1  # four diagonal steps for Q = 3
+        ops[1, :3] = 3  # three deletions for R = 2
+        ops[2, 0] = 5
+        ops[3, 2:4] = torch.tensor([2, 1], dtype=torch.int8)
+        q = torch.full((4, 3), ord("A"), dtype=torch.uint8)
+        r = torch.full((4, 2), ord("A"), dtype=torch.uint8)
+        runs, counts = K.nw_cigar(ops, q, r)
+        assert counts.tolist() == [-1, -1, -1, 2]
+        assert runs[3, :2].tolist() == [(1 << 4) | 7, (1 << 4) | 1]
+
+    def test_align_many_raises_on_a_bad_count(self, monkeypatch):
+        def bad(ops, q, r):
+            return (torch.zeros((ops.shape[0], 4), dtype=torch.int32),
+                    torch.full((ops.shape[0],), -1, dtype=torch.int32))
+
+        monkeypatch.setattr("nanocaller_tpu_torch.align.batch_nw.nw_cigar",
+                            bad)
+        with pytest.raises(RuntimeError, match="nw_cigar"):
+            BatchAligner(device="cpu").align_many([("ACGT", "ACGT")])
+
+    def test_pad_bytes_scatters_by_offsets(self):
+        raw, lens = pad_bytes(["AC", "", "GTa", "N"], 4)
+        assert lens.tolist() == [2, 0, 3, 1]
+        assert raw.tolist() == [[65, 67, 0, 0], [0] * 4, [71, 84, 97, 0],
+                                [78, 0, 0, 0]]
+        with pytest.raises(ValueError):
+            pad_bytes(["ACGTA"], 4)
