@@ -20,7 +20,10 @@ Phases, each printing one JSON line per case:
    path finds it), with the longest walk's step count; then K4 nw_cigar
    against its plain twin on each of K2's op streams and the pairs' raw
    bytes (with lowercase and N bytes), the counts and every run exactly
-   equal, with kernel, twin and bound times;
+   equal, with kernel, twin and bound times; then K5 snp_dense_pileup
+   against its plain twin at B = 4096 and R = 160 and 64 on random dense
+   batches (deep rows, reads masked off), both outputs exactly equal,
+   with kernel, twin and bound times;
 4. the indel CNNs (diploid and haploid packs) on cuda against cpu,
    atol 2e-5, B = 256;
 5. the indel slice: a haplotagged fixture (one 500 kb contig, ~30x,
@@ -103,7 +106,23 @@ Phases, each printing one JSON line per case:
    fixture, on cuda (counters reset just before, read just after) and
    on cpu; the five VCFs by phase 9's rules, the hiq sets and phase maps
    identical; K1, K2 and K4 must launch in a bucket with R >= 256, their
-   launches by bucket printed.
+   launches by bucket printed;
+14. the per-chunk and dense SNP paths (phase_a2b), each cuda run with
+   the counters reset just before and read just after (K3 by wire, group
+   or chunk, and K5) and held by compare_records' rules against its cpu
+   run and against the group path's run: phase 7's fixture under
+   --no_snp_group_payload, snp_group_span = -1 (K3 on chunk wires only)
+   and --no_dedup_transfer (K5 only); `--mode all --no_dedup_transfer`
+   on phase 11's 500 kb cut; a 500 kb contig of 1 kb reads at 80x
+   (~40,000 reads, over the group payload's read cap on its own) with
+   its route, S, N and S x N printed, at maxcov 160 (K3 on its chunk
+   wire), at --maxcov 48 (every row deep) and with _TABLE_CELL_CAP
+   lowered under its S x N (K5), K3 against its twin at that chunk's
+   cohorts, timed, and the chunk's x by the three routes (a group of
+   one, its chunk wire, its dense batch) bit for bit; K5 against its
+   twin, exactly, and timed, on the largest batch the --no_dedup_transfer
+   run launched it on (the kernels line's K5 row) and on the over-caps
+   chunk's dense batches.
 
 Then one JSON line with every kernel's launches (on the main path's
 --mode all --cpu N run; each path's own under launches_by_path), error
@@ -176,9 +195,25 @@ K3_OPS_PER_BAND = 12
 # per selected column: its column index (base + rank), the index clamp
 # and the union-site load's address
 K3_OPS_PER_COLUMN = 3
+# int32 operations per read K5 needs, one each: its mask test and its
+# centre code's < 4 test (whether the read is counted)
+K5_OPS_PER_READ = 2
+# int32 operations per code of a counted read: its < 4 test
+K5_OPS_PER_CODE = 1
 # the SNP slice's K3 launches: one diploid cohort for each of its five
 # decode groups (no deep row at maxcov 160)
 SNP_LAUNCHES = 5
+# K5's random timed shapes: rows (the SNP CNN's batch) and read-axis sizes
+K5_B = 4096
+K5_R = (160, 64)
+# phase 14's over-caps contig: one 500 kb contig of 1 kb reads at 80x
+# (about 40,000 reads, over the group payload's read cap on its own), a
+# planted SNP every 1,000 bp from 2 kb to 498 kb, run on the region the
+# SNPs span (its reads cover every candidate fully; the scan window still
+# holds every read), and --maxcov 48, under every candidate's depth
+CAPS_FIXTURE_LEN = 500_000
+CAPS_REGION = "chr_t:2001-498000"
+CAPS_MAXCOV = 48
 BUCKETS = [(192, 192), (256, 192), (256, 320), (512, 512)]
 SCORINGS = {"allele": (20, -10, 9, 1), "msa": (5, -4, 8, 1)}
 B_NW = 1024
@@ -197,8 +232,9 @@ FIXTURE_LEN = 500_000
 # bp packs them into four two-member groups and one single
 SNP_FIXTURE_LEN = 4_200_000
 SNP_CNN_B = 4096
-# the pileup's centre column, the candidate site
+# the pileup's centre column, the candidate site, and its width
 CENTER_COL = 20
+WIDTH = 41
 # the port's probability parity bar (ROADMAP "Parity bar"): a printed
 # phred value (SNP QUAL, indel QUAL and GQ: -10*log10(eps + q) for a
 # probability or complement q) may differ by more than one unit of its
@@ -425,6 +461,81 @@ def phase_kernels(K, rng):
         emit(row)
         rows.append(row)
         del tb, ops_k, twin_k, cur, runs, w_runs
+    rows += phase_k5(rng)
+    return rows
+
+
+def k5_work(args):
+    """The bytes and int32 operations K5's function needs on these inputs
+    (codes, read_mask, col_ref, col_valid, center_ref, norm): every mask
+    byte; the centre code of each masked-in read, and the other 40 codes
+    of each counted read (masked in, centre code 0-3), the only codes
+    that reach the counts; col_ref, col_valid, center_ref and norm; x and
+    the ref one-hot written. Returns (bytes, operations, counted reads,
+    counted cells)."""
+    codes, mask = args[0], args[1].bool()
+    B, R = mask.shape
+    centre = codes[:, :, CENTER_COL]
+    counted = mask & (centre >= 0) & (centre < 4)
+    reads = int(counted.sum())
+    c = codes[counted]
+    cells = int(((c >= 0) & (c < 4)).sum())
+    nbytes = (args[1].numel() * args[1].element_size() + int(mask.sum())
+              + (WIDTH - 1) * reads
+              + sum(t.numel() * t.element_size() for t in args[2:])
+              + B * 5 * WIDTH * 5 * 4 + B * 4 * 4)
+    ops = (B * R * K5_OPS_PER_READ + reads * WIDTH * K5_OPS_PER_CODE
+           + cells * K3_OPS_PER_COUNT)
+    return nbytes, ops, reads, cells
+
+
+def k5_row(label, args):
+    """K5 against its plain twin on the card tensors `args`, both outputs
+    torch.equal (else fail), with kernel, twin and bound times; emits
+    and returns the row, and K5's x."""
+    import torch
+
+    from nanocaller_tpu_torch.pileup import snp_dense as K5
+
+    with torch.inference_mode():
+        outs = K5.snp_dense_pileup(*args)
+        twins = K5.snp_dense_pileup_reference(*args)
+        torch.cuda.synchronize()
+        B, R = args[1].shape
+        shape = {"inputs": label, "B": B, "R": R}
+        if not all(o.shape == w.shape and o.dtype == w.dtype and
+                   torch.equal(o, w) for o, w in zip(outs, twins)):
+            errs = [float((o - w).abs().max()) for o, w in zip(outs, twins)]
+            fail("K5 differs from its twin at %s (max err x %g, ref %g)"
+                 % (shape, *errs))
+        nbytes, ops, reads, cells = k5_work(args)
+        ms = cuda_ms(lambda: K5.snp_dense_pileup(*args), 10)
+        plain_ms = cuda_ms(lambda: K5.snp_dense_pileup_reference(*args), 1)
+    row = {"phase": "K5_snp_dense_pileup", **shape, "exact": True,
+           "max_abs_err": 0.0, "ref_max_abs_err": 0.0,
+           "masked_in_reads": int(args[1].sum()), "counted_reads": reads,
+           "counted_cells": cells, "bytes": nbytes, "ms": ms,
+           "plain_ms": plain_ms, **bound(nbytes, ops)}
+    row["share_of_bound"] = row["bound_ms"] / ms
+    emit(row)
+    return row, outs[0]
+
+
+def phase_k5(rng):
+    """Phase 3, K5 snp_dense_pileup against its plain twin (k5_row) at
+    B = K5_B rows and each read-axis size of K5_R, on random dense
+    batches with deep rows (every read in) and reads masked off with
+    codes (sim.random_dense_batch)."""
+    import torch
+
+    from nanocaller_tpu_torch.sim import random_dense_batch
+
+    rows = []
+    for R in K5_R:
+        host = random_dense_batch(rng, K5_B, R)
+        args = [torch.from_numpy(a).cuda() for a in host]
+        rows.append(k5_row("random_dense", args)[0])
+        del args
     return rows
 
 
@@ -945,52 +1056,57 @@ def k3_work(args, gf, outs):
 
 def phase_k3(fasta_p, bam_p, e2e_launches):
     """Phase 8: K3 against its twin on the card, exact, with times."""
+    return [k3_row(label, args, gf, e2e_launches)
+            for label, args, gf in k3_cases(fasta_p, bam_p)]
+
+
+def k3_row(label, args, gf, e2e_launches):
+    """One K3 launch's row: K3 against its twin (all three outputs
+    exactly equal; else fail), its work (k3_work), kernel, twin and
+    bound times and the time of the torch neighbour selection on the
+    same rows."""
     import torch
 
     from nanocaller_tpu_torch.pileup import snp_pileup as K3
 
-    rows = []
-    for label, args, gf in k3_cases(fasta_p, bam_p):
-        wire, rids = args[0], args[6]
-        outs = K3.snp_pileup(*args)
-        twins = K3.snp_pileup_reference(*args)
-        torch.cuda.synchronize()
-        B = outs[0].shape[0]
-        shape = {"inputs": label, "B": B, "N": wire.n_reads,
-                 "S": wire.n_sites, "M": wire.n_nbrs,
-                 "E": wire.exc_rid.shape[0], "H": wire.hole_rid.shape[0],
-                 "deep_width": 0 if rids is None else rids.shape[1]}
-        errs = [float((o.float() - w.float()).abs().max()) if o.numel()
-                else 0.0 for o, w in zip(outs, twins)]
-        if any(e != 0 for e in errs) or not all(
-                o.shape == w.shape and o.dtype == w.dtype
-                for o, w in zip(outs, twins)):
-            fail("K3 differs from its twin at %s (max err x %g, soc %g, "
-                 "ref %g)" % (shape, *errs))
-        work = k3_work(args, gf, outs)
-        ms = cuda_ms(lambda: K3.snp_pileup(*args), 10)
-        plain_ms = cuda_ms(lambda: K3.snp_pileup_reference(*args), 1)
-        # the torch neighbour selection K3's own replaced, on the same
-        # rows (its band table read on the host once, as the schedule
-        # was): ~200 small launches a call, ~2 ms of host time, so two
-        # calls behind a long spin, which the launch queue holds whole
-        bands = wire.bands.cpu()
-        sel_ms = cuda_ms(lambda: K3.select_neighbors_clamped(
-            args[1], args[2], wire.nbr_pos, wire.nbr_union, bands, args[3],
-            args[4]), 2, spin=8 * SPIN_CYCLES)
-        row = {"phase": "K3_snp_pileup", **shape, "exact": True,
-               "max_abs_err": errs[0], "soc_max_abs_err": errs[1],
-               "ref_max_abs_err": errs[2], **work,
-               "e2e_launches": e2e_launches, "ms": ms, "plain_ms": plain_ms,
-               "selection_torch_ms": sel_ms,
-               **bound(work["bytes"], work["cell_codes"] * K3_OPS_PER_CODE
-                       + work["counted_cells"] * K3_OPS_PER_COUNT
-                       + work["selection_ops"])}
-        row["share_of_bound"] = row["bound_ms"] / ms
-        emit(row)
-        rows.append(row)
-        del outs, twins
-    return rows
+    wire, rids = args[0], args[6]
+    outs = K3.snp_pileup(*args)
+    twins = K3.snp_pileup_reference(*args)
+    torch.cuda.synchronize()
+    B = outs[0].shape[0]
+    shape = {"inputs": label, "wire": wire.kind, "B": B, "N": wire.n_reads,
+             "S": wire.n_sites, "M": wire.n_nbrs,
+             "E": wire.exc_rid.shape[0], "H": wire.hole_rid.shape[0],
+             "deep_width": 0 if rids is None else rids.shape[1]}
+    errs = [float((o.float() - w.float()).abs().max()) if o.numel()
+            else 0.0 for o, w in zip(outs, twins)]
+    if any(e != 0 for e in errs) or not all(
+            o.shape == w.shape and o.dtype == w.dtype
+            for o, w in zip(outs, twins)):
+        fail("K3 differs from its twin at %s (max err x %g, soc %g, "
+             "ref %g)" % (shape, *errs))
+    work = k3_work(args, gf, outs)
+    ms = cuda_ms(lambda: K3.snp_pileup(*args), 10)
+    plain_ms = cuda_ms(lambda: K3.snp_pileup_reference(*args), 1)
+    # the torch neighbour selection K3's own replaced, on the same rows
+    # (its band table read on the host once, as the schedule was): ~200
+    # small launches a call, ~2 ms of host time, so two calls behind a
+    # long spin, which the launch queue holds whole
+    bands = wire.bands.cpu()
+    sel_ms = cuda_ms(lambda: K3.select_neighbors_clamped(
+        args[1], args[2], wire.nbr_pos, wire.nbr_union, bands, args[3],
+        args[4]), 2, spin=8 * SPIN_CYCLES)
+    row = {"phase": "K3_snp_pileup", **shape, "exact": True,
+           "max_abs_err": errs[0], "soc_max_abs_err": errs[1],
+           "ref_max_abs_err": errs[2], **work,
+           "e2e_launches": e2e_launches, "ms": ms, "plain_ms": plain_ms,
+           "selection_torch_ms": sel_ms,
+           **bound(work["bytes"], work["cell_codes"] * K3_OPS_PER_CODE
+                   + work["counted_cells"] * K3_OPS_PER_COUNT
+                   + work["selection_ops"])}
+    row["share_of_bound"] = row["bound_ms"] / ms
+    emit(row)
+    return row
 
 
 def _vcf_phase_sets(path):
@@ -1332,6 +1448,303 @@ def phase_cram_all(tmp):
           "cram_wall_s": walls["cram"], "bam_timers_s": timers["bam"],
           "cram_timers_s": timers["cram"]})
     return fasta_p, bam_p
+
+
+def write_caps_fixture(tmp):
+    import numpy as np
+
+    from nanocaller_tpu_torch.io.fasta import write_fasta
+    from nanocaller_tpu_torch.sim import (BASES, make_diploid_readset,
+                                          random_seq, write_bam)
+
+    rng = np.random.default_rng(2027)
+    L = CAPS_FIXTURE_LEN
+    ref = random_seq(rng, L)
+    snps = []
+    for k, p in enumerate(range(2000, L - 2000, 1000)):
+        alt = BASES[(BASES.index(ref[p]) + 1 + k % 3) % 4]  # never the ref
+        snps.append((p, alt, ("het1", "het2", "hom")[k % 3]))
+    reads = make_diploid_readset(rng, ref, snps=snps, depth=80,
+                                 read_len=1000, error_rate=0.03,
+                                 indel_error_rate=0.01)
+    fasta_p = os.path.join(tmp, "caps_ref.fa")
+    bam_p = os.path.join(tmp, "caps_reads.bam")
+    write_fasta(fasta_p, {"chr_t": ref})
+    write_bam(bam_p, "chr_t", L, reads)
+    return fasta_p, bam_p, len(snps), len(reads)
+
+
+def x_routes(state, cfg, bam_p, fasta_p, member, maxcov, feats):
+    """The CNN input x of one chunk's candidates by the three SNP routes
+    on the card: a group of one (K3 on its group wire, the read cap
+    raised for the build), the chunk's SnpChunkFeatures `feats` (K3 on
+    its chunk wire) and its dense SnpBatch (K5, held against its twin on
+    the same card tensors and timed, k5_row), at the chunk's coverage
+    scale: torch.equal, else fail. Returns K5's row."""
+    import numpy as np
+    import torch
+
+    from nanocaller_tpu_torch.io.bam import BamReader
+    from nanocaller_tpu_torch.io.fasta import FastaFile
+    from nanocaller_tpu_torch.pileup import snp_features as SF
+    from nanocaller_tpu_torch.pileup import snp_pileup as K3
+    from nanocaller_tpu_torch.snp_caller import (_coverage_norm,
+                                                 chunk_cohorts,
+                                                 pileup_cohorts)
+
+    kw = dict(maxcov=maxcov, seq_type=cfg.sequencing, mincov=cfg.mincov,
+              min_allele_freq=cfg.min_allele_freq,
+              min_nbr_sites=cfg.min_nbr_sites, threshold=cfg.threshold)
+    bam, fasta = BamReader(bam_p), FastaFile(fasta_p)
+    saved = SF._GROUP_MAX_READS
+    SF._GROUP_MAX_READS = feats.n_reads
+    try:
+        [gf] = SF.get_snp_group_payloads(bam, fasta, [member], **kw)
+    finally:
+        SF._GROUP_MAX_READS = saved
+    gf.members = [(0, sec) for _m, sec in gf.members]
+    batch = SF.get_snp_candidates(bam, fasta, member, **kw)
+    B = len(feats)
+    dev = state.device
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    xs = {r: torch.zeros((B, 5, WIDTH, 5), device=dev)
+          for r in ("group", "chunk")}
+    for _p, _deep, args, _mi, js in pileup_cohorts(state, gf, cfg):
+        xs["group"][t(js)] = K3.snp_pileup(*args)[0]
+    for _deep, args, rows in chunk_cohorts(state, feats, cfg, "diploid"):
+        xs["chunk"][t(rows)] = K3.snp_pileup(*args)[0]
+    k5, xs["dense"] = k5_row("caps_dense_maxcov%d" % maxcov, [
+        t(batch.codes), t(batch.read_mask), t(batch.col_ref),
+        t(batch.col_valid), t(batch.center_ref),
+        t(_coverage_norm(state, feats, "diploid", cfg))])
+    torch.cuda.synchronize()
+    equal = torch.equal(xs["group"], xs["chunk"]) and \
+        torch.equal(xs["chunk"], xs["dense"])
+    emit({"phase": "a2b_x_routes", "maxcov": maxcov, "rows": B,
+          "deep_rows": len(feats.deep_idx), "group_wire_reads": gf.n_reads,
+          "x_bit_identical": equal})
+    if not equal:
+        fail("x differs across the SNP routes at maxcov %d" % maxcov)
+    return k5
+
+
+def phase_a2b(tmp, snp_fasta, snp_bam, cut_fasta, cut_bam):
+    """Phase 14: the per-chunk and dense SNP paths on the card, each run
+    with the counters reset just before and read just after (K3 launches
+    by wire, group or chunk, and K5's), held by compare_records' rules
+    cuda against cpu and against the group path's run:
+    (a) phase 7's SNP fixture under --no_snp_group_payload,
+        snp_group_span = -1 and --no_dedup_transfer (K3 on chunk wires,
+        K3 on chunk wires, K5), against phase 7's cuda run;
+    (b) `--mode all --no_dedup_transfer` on phase 11's 500 kb cut (K5,
+        K1, K2, K4), the five VCFs against phase 11's BAM run;
+    (c) a chunk over the group payload caps on its own at the real
+        _GROUP_MAX_READS (write_caps_fixture): its route (chunk or dense
+        by S x N against _TABLE_CELL_CAP) and its S, N and S x N printed;
+        then with --maxcov 48 (every row deep); then with _TABLE_CELL_CAP
+        lowered under its S x N (dense, K5), against the first run; K3
+        against its twin at the member's cohorts, timed; and its x by
+        the three routes, bit for bit (x_routes).
+    K5 is held against its twin, exactly, and timed (k5_row) on the
+    largest dense batch the cuda run of (a) under --no_dedup_transfer
+    gave it, and on the over-caps member's dense batches (x_routes).
+    Returns {path: counters} of the cuda runs, the K3 rows of (c) and the
+    K5 rows, the (a) run's first."""
+    from nanocaller_tpu_torch import cli
+    from nanocaller_tpu_torch.align import nw_kernels as K
+    from nanocaller_tpu_torch.caller import run
+    from nanocaller_tpu_torch.io.bam import BamReader
+    from nanocaller_tpu_torch.io.fasta import FastaFile
+    from nanocaller_tpu_torch.pileup import snp_dense as K5
+    from nanocaller_tpu_torch.pileup import snp_features as SF
+    from nanocaller_tpu_torch.pileup import snp_pileup as K3
+    from nanocaller_tpu_torch import snp_caller as SC
+    from nanocaller_tpu_torch.snp_caller import SnpCallerState, chunk_cohorts
+
+    t_phase = time.perf_counter()
+    vcf = lambda out, name: os.path.join(tmp, out, "smoke.%s.vcf.gz" % name
+                                         if name else "smoke.vcf.gz")
+    snp_vcfs = (("unfiltered.snps", "snp"), ("snps", "snp"))
+    all_vcfs = snp_vcfs + (("snps.phased", "snp"), ("indels", "indel"),
+                           ("", "any"))
+
+    def drive(label, bam_p, fasta_p, mode, dev, extra=(), span=None,
+              capture=None):
+        """One CLI run with the counters reset just before and read just
+        after; with a dict `capture`, a copy of the inputs of the run's
+        largest K5 launch goes into capture["args"]."""
+        out = "a2b_%s_%s" % (label, dev)
+        cfg = cli.config_from_args([
+            "--bam", bam_p, "--ref", fasta_p, "--mode", mode, "--cpu", "1",
+            "--device", dev, "--output", os.path.join(tmp, out), "--prefix",
+            "smoke", "--sample", "S", "--suppress_progress_bar", *extra])
+        if span is not None:
+            cfg.snp_group_span = span
+        K.reset_counters()
+        K3.reset_counters()
+        K5.reset_counters()
+        launch = SC.snp_dense_pileup
+        if capture is not None:
+            def keep(*args):
+                if args[1].numel() > capture.get("cells", -1):
+                    capture.update(cells=args[1].numel(),
+                                   args=[a.clone() for a in args])
+                return launch(*args)
+            SC.snp_dense_pileup = keep
+        t0 = time.perf_counter()
+        try:
+            run(cfg)
+        finally:
+            SC.snp_dense_pileup = launch
+        wall = time.perf_counter() - t0
+        counts = {"k3_group": K3.BY_WIRE["group"],
+                  "k3_chunk": K3.BY_WIRE["chunk"],
+                  "k5": K5.SNP_DENSE_LAUNCHES,
+                  "k1": K.NW_TB_LAUNCHES, "k2": K.NW_WALK_LAUNCHES,
+                  "k4": K.NW_CIGAR_LAUNCHES}
+        if dev == "cpu" and any(counts.values()):
+            fail("the cpu run %s launched a CUDA kernel: %s" % (out, counts))
+        return out, wall, counts
+
+    def held(label, a, b, names):
+        """compare_records of each VCF of runs a and b; one line."""
+        records, cases = {}, []
+        for name, kind in names:
+            records[name], diffs = compare_records(vcf(a, name),
+                                                   vcf(b, name), kind)
+            cases += [dict(d, vcf=name) for d in diffs]
+        emit({"phase": "a2b_held", "runs": label, "a": a, "b": b,
+              "records": records, "rounding_cases": len(cases),
+              "first_cases": cases[:5]})
+        return records
+
+    def expect(label, counts, **want):
+        for k, v in want.items():
+            if (counts[k] >= 1) if v == "some" else (counts[k] == v):
+                continue
+            fail("phase 14 %s: %s launches %d, expected %s (%s)"
+                 % (label, k, counts[k], v, counts))
+
+    results = {}
+    dense_batch = {}
+    # (a) the SNP fixture under the three flags
+    for label, extra, span, want in (
+            ("chunk", ["--no_snp_group_payload"], None,
+             dict(k3_group=0, k3_chunk="some", k5=0)),
+            ("span", [], -1, dict(k3_group=0, k3_chunk="some", k5=0)),
+            ("dense", ["--no_dedup_transfer"], None,
+             dict(k3_group=0, k3_chunk=0, k5="some"))):
+        cuda, wall, counts = drive(label, snp_bam, snp_fasta, "snps",
+                                   "cuda", extra, span,
+                                   dense_batch if label == "dense" else None)
+        expect(label, counts, **want)
+        cpu, cpu_wall, _ = drive(label, snp_bam, snp_fasta, "snps", "cpu",
+                                 extra, span)
+        recs = held("snps_%s cuda vs cpu" % label, cuda, cpu, snp_vcfs)
+        held("snps_%s vs group (phase 7)" % label, cuda, "snp_cuda",
+             snp_vcfs)
+        results["snps_" + label] = counts
+        emit({"phase": "a2b_snps", "path": label, "records": recs,
+              "cuda_wall_s": wall, "cpu_wall_s": cpu_wall, **counts})
+    k5_rows = [k5_row("snps_dense_run", dense_batch.pop("args"))[0]]
+
+    # (b) --mode all --no_dedup_transfer on the 500 kb cut
+    cuda, wall, counts = drive("all_dense", cut_bam, cut_fasta, "all",
+                               "cuda", ["--no_dedup_transfer"])
+    expect("all_dense", counts, k3_group=0, k3_chunk=0, k5="some",
+           k1="some", k2="some", k4="some")
+    cpu, cpu_wall, _ = drive("all_dense", cut_bam, cut_fasta, "all", "cpu",
+                             ["--no_dedup_transfer"])
+    recs = held("all_dense cuda vs cpu", cuda, cpu, all_vcfs)
+    held("all_dense vs group (phase 11)", cuda, "cram_all_bam", all_vcfs)
+    results["all_dense"] = counts
+    emit({"phase": "a2b_all_dense", "records": recs, "cuda_wall_s": wall,
+          "cpu_wall_s": cpu_wall, **counts})
+
+    # (c) a chunk over the caps on its own, at the real caps
+    t0 = time.perf_counter()
+    fasta_p, bam_p, n_snps, n_reads = write_caps_fixture(tmp)
+    t_fixture = time.perf_counter() - t0
+    contig, span = CAPS_REGION.split(":")
+    lo, hi = map(int, span.split("-"))
+    member = {"chrom": contig, "start": lo, "end": hi, "ploidy": "diploid"}
+    state = SnpCallerState.create("ONT-HG002", device="cuda")
+    cfg = cli.config_from_args(["--bam", bam_p, "--ref", fasta_p])
+    feats = {}
+    for maxcov in (cfg.maxcov, CAPS_MAXCOV):
+        [p] = SF.get_snp_group_payloads(
+            BamReader(bam_p), FastaFile(fasta_p), [member],
+            maxcov=maxcov, seq_type=cfg.sequencing, mincov=cfg.mincov,
+            min_allele_freq=cfg.min_allele_freq,
+            min_nbr_sites=cfg.min_nbr_sites, threshold=cfg.threshold)
+        if not isinstance(p, tuple):
+            fail("the over-caps chunk went as a group payload")
+        feats[maxcov] = p[1]
+    f = feats[cfg.maxcov]
+    route = "chunk" if isinstance(f, SF.SnpChunkFeatures) else "dense"
+    scan = SF._scan_chunk(BamReader(bam_p), FastaFile(fasta_p), member)
+    S, N = len(scan.union_sites), scan.rw.n_reads
+    cells = (S + 1) * N
+    emit({"phase": "a2b_caps_member", "contig_bp": CAPS_FIXTURE_LEN,
+          "region": CAPS_REGION, "reads": n_reads, "planted_snps": n_snps,
+          "fixture_s": t_fixture, "route": route, "S": S, "N": N,
+          "S_x_N": S * N, "table_cells": cells,
+          "group_max_reads": SF._GROUP_MAX_READS,
+          "table_cell_cap": SF._TABLE_CELL_CAP, "candidates": len(f),
+          "deep_rows_at_maxcov_48": len(feats[CAPS_MAXCOV].deep_idx)
+          if route == "chunk" else None})
+    if N <= SF._GROUP_MAX_READS:
+        fail("the over-caps chunk has %d reads, not over the cap %d"
+             % (N, SF._GROUP_MAX_READS))
+    if route == "chunk" and \
+            len(feats[CAPS_MAXCOV].deep_idx) != len(feats[CAPS_MAXCOV]):
+        fail("at --maxcov %d not every row of the over-caps chunk is deep"
+             % CAPS_MAXCOV)
+    extra = ["--regions", CAPS_REGION]
+    k3_rows = []
+    caps = {}
+    for label, more, want in (
+            ("caps", [], dict(k3_group=0, k3_chunk=1, k5=0)
+             if route == "chunk" else dict(k3_group=0, k3_chunk=0, k5=1)),
+            ("caps_deep", ["--maxcov", str(CAPS_MAXCOV)],
+             dict(k3_group=0, k3_chunk=1, k5=0)
+             if route == "chunk" else dict(k3_group=0, k3_chunk=0, k5=1))):
+        cuda, wall, counts = drive(label, bam_p, fasta_p, "snps", "cuda",
+                                   extra + more)
+        expect(label, counts, **want)
+        cpu, cpu_wall, _ = drive(label, bam_p, fasta_p, "snps", "cpu",
+                                 extra + more)
+        recs = held("%s cuda vs cpu" % label, cuda, cpu, snp_vcfs)
+        results[label] = counts
+        caps[label] = cuda
+        emit({"phase": "a2b_caps_run", "run": label, "records": recs,
+              "cuda_wall_s": wall, "cpu_wall_s": cpu_wall, **counts})
+    if route == "chunk":
+        saved = SF._TABLE_CELL_CAP
+        SF._TABLE_CELL_CAP = cells - 1
+        try:
+            cuda, wall, counts = drive("caps_dense", bam_p, fasta_p, "snps",
+                                       "cuda", extra)
+        finally:
+            SF._TABLE_CELL_CAP = saved
+        expect("caps_dense", counts, k3_group=0, k3_chunk=0, k5=1)
+        held("caps_dense vs caps (chunk)", cuda, caps["caps"], snp_vcfs)
+        results["caps_dense"] = counts
+        emit({"phase": "a2b_caps_run", "run": "caps_dense",
+              "table_cell_cap": cells - 1, "cuda_wall_s": wall, **counts})
+        for maxcov, label in ((cfg.maxcov, "caps_chunk"),
+                              (CAPS_MAXCOV, "caps_chunk_maxcov48")):
+            run_label = "caps" if maxcov == cfg.maxcov else "caps_deep"
+            for deep, args, _rows in chunk_cohorts(
+                    state, feats[maxcov], cfg, "diploid"):
+                k3_rows.append(k3_row(
+                    label + ("_deep" if deep else ""), args, feats[maxcov],
+                    results[run_label]["k3_chunk"]))
+            k5_rows.append(x_routes(state, cfg, bam_p, fasta_p, member,
+                                    maxcov, feats[maxcov]))
+    emit({"phase": "a2b", "wall_s": time.perf_counter() - t_phase,
+          "launches": results})
+    return results, k3_rows, k5_rows
 
 
 def _child_pids(pid):
@@ -1795,6 +2208,8 @@ def main():
         cut_fasta, cut_bam = phase_cram_all(tmp)
         dag_counts = phase_dag(tmp)
         ccs_counts = phase_ccs(tmp, cut_fasta, cut_bam)
+        a2b_counts, a2b_k3_rows, a2b_k5_rows = phase_a2b(
+            tmp, fasta_p, bam_p, cut_fasta, cut_bam)
 
     def pick(phase):
         return next(r for r in rows if r["phase"] == phase and
@@ -1802,6 +2217,9 @@ def main():
                     (r["Q"], r["R"], r["scoring"]) == (192, 192, "msa"))
 
     k1, k2, k4 = pick("K1_nw_tb"), pick("K2_nw_walk"), pick("K4_nw_cigar")
+    k5 = a2b_k5_rows[0]
+    k5_rows = [r for r in rows if r["phase"] == "K5_snp_dense_pileup"] \
+        + a2b_k5_rows
     k3 = next(r for r in k3_rows if r["inputs"].startswith("main_group1"))
 
     def max_err(phase, rows=rows):
@@ -1851,13 +2269,32 @@ def main():
          "launches_by_path": {"snps": snp_counts["SNP_PILEUP_LAUNCHES"],
                               "all": all_counts["SNP_PILEUP_LAUNCHES"],
                               "all_cpuN": dag_counts["SNP_PILEUP_LAUNCHES"],
-                              "all_ccs": ccs_counts["SNP_PILEUP_LAUNCHES"]},
-         "max_abs_err": max_err("K3_snp_pileup", k3_rows),
+                              "all_ccs": ccs_counts["SNP_PILEUP_LAUNCHES"],
+                              **{"a2b_%s_%s_wire" % (path, wire):
+                                 c["k3_" + wire]
+                                 for path, c in a2b_counts.items()
+                                 for wire in ("group", "chunk")}},
+         "max_abs_err": max_err("K3_snp_pileup", k3_rows + a2b_k3_rows),
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": None,
          "shape": "B=%d rows, N=%d reads, S=%d sites (%s)"
                   % (k3["B"], k3["N"], k3["S"], k3["inputs"])},
+        {"name": "snp_dense_pileup", "route": "cuda",
+         "source": "nanocaller_tpu_torch/csrc/snp_dense_pileup.cu",
+         "replaces": "nanocaller_tpu/snp_caller.py:79 and :61",
+         "launches": a2b_counts["snps_dense"]["k5"],
+         "launches_by_path": {"a2b_" + path: c["k5"]
+                              for path, c in a2b_counts.items()},
+         "max_abs_err": max_err("K5_snp_dense_pileup", k5_rows),
+         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+         "library_ms": None,
+         "shape": "B=%d rows, R=%d reads (the largest batch of the "
+                  "--no_dedup_transfer run)" % (k5["B"], k5["R"]),
+         "other_shapes": [{k: r[k] for k in (
+             "inputs", "B", "R", "ms", "plain_ms", "bound_ms", "bound_by")}
+             for r in k5_rows[:-len(a2b_k5_rows)] + a2b_k5_rows[1:]]},
     ]
     print(smi, flush=True)
     emit({"kernels": kernels})

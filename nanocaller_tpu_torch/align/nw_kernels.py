@@ -18,12 +18,12 @@ PyTorch twins, and the nvcc build of every kernel of the port.
 
 Each wrapper takes its plain twin (`nw_tb_reference`, `nw_walk_reference`,
 `nw_cigar_reference`) only for a tensor on the CPU; for a CUDA tensor it
-launches its kernel or raises. Every source in SOURCES (these three and
-K3 csrc/snp_pileup.cu,
-whose wrapper is pileup/snp_pileup.py) is built at first use with nvcc
-for sm_90a into nanocaller_tpu_torch/_build/ (a directory .gitignore
-lists), into one library named by the hash of the sources, and loaded
-with ctypes.
+launches its kernel or raises. Every source in SOURCES (these three, K3
+csrc/snp_pileup.cu, whose wrapper is pileup/snp_pileup.py, and K5
+csrc/snp_dense_pileup.cu, whose wrapper is pileup/snp_dense.py) is built
+at first use with nvcc for sm_90a into nanocaller_tpu_torch/_build/ (a
+directory .gitignore lists), into one library named by the hash of the
+sources, and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ NEG = -(1 << 28)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in
-                ("nw_tb.cu", "nw_walk.cu", "nw_cigar.cu", "snp_pileup.cu"))
+                ("nw_tb.cu", "nw_walk.cu", "nw_cigar.cu", "snp_pileup.cu",
+                 "snp_dense_pileup.cu"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -131,6 +132,10 @@ def _lib():
         lib.snp_pileup_launch.argtypes = [p] * 18 + [i] * 4 + [p] * 7 \
             + [i, i] + [p] * 4
         lib.snp_pileup_launch.restype = i
+        # codes, mask, col_ref, col_valid, center_ref, norm, B R, the two
+        # outputs and the stream
+        lib.snp_dense_pileup_launch.argtypes = [p] * 6 + [i, i] + [p] * 3
+        lib.snp_dense_pileup_launch.restype = i
         _LIB = lib
     return _LIB
 

@@ -60,10 +60,10 @@ def build_parser():
                       help="stall supervision (not ported; must be 0)")
     cfgg.add_argument("--no_dedup_transfer", action="store_true",
                       help="the dense per-candidate SNP oracle path of "
-                           "the JAX CLI (not ported yet: raises)")
+                           "the JAX CLI (kernel K5)")
     cfgg.add_argument("--no_snp_group_payload", action="store_true",
                       help="one SNP payload per 500 kb member instead of "
-                           "one per decode group (not ported yet: raises)")
+                           "one per decode group")
     cfgg.add_argument("--snp_pipeline_depth", type=int, default=1,
                       help="dispatched-but-unsynced SNP inference units "
                            "riding the device queue (deeper hides "

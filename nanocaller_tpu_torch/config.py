@@ -63,9 +63,11 @@ class Config:
     # framework extras (not in reference)
     # rows per SNP CNN forward (snp_caller.infer_snp_group); no padding
     batch_size: int = 4096
-    # SNP device-path options of the JAX CLI. The port serves the group
-    # payload path only: False for either raises NotImplementedError
-    # (the per-chunk and dense oracle paths are ROADMAP A2b)
+    # SNP device-path options of the JAX CLI: dedup_transfer=False sends
+    # each chunk as its dense per-candidate batch (the oracle path,
+    # kernel K5); snp_group_payload=False one payload per member chunk
+    # (SnpChunkFeatures, kernel K3 on a chunk wire) instead of one per
+    # decode group. The VCFs are the same either way.
     dedup_transfer: bool = True
     snp_group_payload: bool = True
     # decode groups whose launches are queued before the oldest one's

@@ -577,3 +577,15 @@ class SiteCodes:
         """(rids sorted asc, codes) for site index site_i."""
         lo, hi = self.indptr[site_i], self.indptr[site_i + 1]
         return self.rid[lo:hi], self.code[lo:hi]
+
+    def indexed_keys(self, n_reads):
+        """Encoded (site, rid) keys of all observations, ascending, for one
+        searchsorted lookup across many sites (cached per n_reads)."""
+        if getattr(self, "_keys_n", None) != n_reads:
+            # the triplets are sorted by (site_idx, rid) already
+            site_of = np.repeat(
+                np.arange(len(self.sites), dtype=np.int64),
+                np.diff(self.indptr))
+            self._keys = site_of * n_reads + self.rid
+            self._keys_n = n_reads
+        return self._keys

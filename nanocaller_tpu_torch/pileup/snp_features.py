@@ -1,11 +1,19 @@
-"""SNP candidate scan + the group-level device payload.
+"""SNP candidate scan and the SNP stage's host payloads.
 
-The group path of nanocaller_tpu/pileup/snp_features.py: the per-column
-candidate scan (generate_SNP_pileups.py:103-279 as vectorized numpy
-scans), several coordinate-adjacent chunks scanned off ONE decoded
-window, and the interval + top-2-bitmask + exception/hole encoding of
-their observations that the device turns into pileups
-(pileup/snp_pileup.py, kernel K3).
+nanocaller_tpu/pileup/snp_features.py's scan and representations: the
+per-column candidate scan (generate_SNP_pileups.py:103-279 as vectorized
+numpy scans), run over one chunk or over several coordinate-adjacent
+chunks off ONE decoded window, and three payloads of its observations:
+- SnpGroupFeatures, a decode group's interval + top-2-bitmask +
+  exception/hole encoding (the main path; kernel K3 on a group wire,
+  pileup/snp_pileup.py);
+- SnpChunkFeatures, the same encoding for one chunk, its exceptions as a
+  site CSR of (rid << 3) | code (--no_snp_group_payload,
+  snp_group_span <= -1, and a chunk over the group payload caps on its
+  own; K3 on a chunk wire);
+- SnpBatch, the dense per-candidate (R, 41) read-code matrices (the
+  oracle path, --no_dedup_transfer, and a chunk whose site x read table
+  is over _TABLE_CELL_CAP cells; kernel K5, pileup/snp_dense.py).
 
 Semantics parity notes (all cites into the reference NanoCaller):
 - base codes A0 G1 T2 C3 other4            generate_SNP_pileups.py:104
@@ -13,18 +21,19 @@ Semantics parity notes (all cites into the reference NanoCaller):
 - nbr-site thresholds per ploidy           generate_SNP_pileups.py:170-179
 - candidate threshold + window gate        generate_SNP_pileups.py:183-186
 - neighbor band schedules, 20/side         generate_SNP_pileups.py:6-101
+- tensor formula incl. sign flip           generate_SNP_pileups.py:221-254
 - ref base valid only if uppercase AGTC    generate_SNP_pileups.py:137
 - maxcov downsampling (reference draws from the unseeded stdlib RNG at
   :216, i.e. is nondeterministic across runs; a position-keyed
   deterministic RNG is used instead)
 
-The group window is decoded in two native phases (engine.deferred_decode:
+A window is decoded in two native phases (engine.deferred_decode:
 per-column counts for the scan, then per-read codes at the candidate ∪
 neighbor sites only). A group over the payload caps, or one whose
 neighbor lists fail the cross-check, is sent as one single-member group
-per member, as the JAX package sends it as per-member payloads; a member
-still over the caps on its own raises NotImplementedError (ROADMAP B6,
-the per-chunk kernels).
+per member; a member over the caps on its own goes as its
+SnpChunkFeatures (or SnpBatch), as the JAX package's per-member fallback
+builds it.
 """
 
 from __future__ import annotations
@@ -33,8 +42,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .engine import (ReadWindow, SiteCodes, column_counts, decode_reads,
-                     deferred_decode)
+from .engine import (ReadWindow, SiteCodes, _ragged_arange, column_counts,
+                     decode_reads, deferred_decode)
 
 NBR_SIZE = 20
 WIDTH = 2 * NBR_SIZE + 1  # 41
@@ -190,10 +199,61 @@ def select_neighbors(cand_pos, nbr_pos, seq_type):
 
 
 @dataclass
+class SnpBatch:
+    """Dense batch of SNP candidate features (host arrays)."""
+
+    contig: str
+    pos: np.ndarray  # int64[B] 0-based
+    codes: np.ndarray  # int8[B, Rmax, 41] read base codes (4 = missing/other)
+    read_mask: np.ndarray  # bool[B, Rmax]
+    col_ref: np.ndarray  # int8[B, 41] (4 at padded columns)
+    col_valid: np.ndarray  # bool[B, 41]
+    center_ref: np.ndarray  # int8[B]
+    dp: np.ndarray  # int32[B] aligned depth (non-del)
+    freq: np.ndarray  # float32[B] max alt-allele freq
+    fwd_dp: np.ndarray  # int32[B, 4]
+    rev_dp: np.ndarray  # int32[B, 4]
+    sampled_depth: np.ndarray  # int32[B] reads used after maxcov sampling
+    nbr_counts: np.ndarray  # int32[B] 1 + len(left) + len(right)
+
+    @property
+    def coverage(self):
+        """Region coverage = mean sampled depth (generate_SNP_pileups.py:274)."""
+        return float(np.mean(self.sampled_depth)) if len(self.pos) else 0.0
+
+    def __len__(self):
+        return len(self.pos)
+
+
+def assemble_matrices_np(batch: SnpBatch):
+    """Numpy oracle of the dense pileup assembly (kernel K5 before the
+    coverage scale); returns float32 (B,5,41,5).
+
+    Mirrors generate_SNP_pileups.py:247-254 exactly.
+    """
+    codes = batch.codes.astype(np.int64)
+    center = codes[:, :, CENTER]
+    grp = (center[..., None] == np.arange(4)).astype(np.float32)
+    grp *= batch.read_mask[..., None]
+    oh = np.eye(5, dtype=np.float32)[codes]  # (B,R,41,5)
+    mat = np.einsum("brg,brwc->bgwc", grp, oh)[..., :4]
+    ref_eq = (batch.center_ref[:, None] == np.arange(4)).astype(np.float32)
+    ch4 = ref_eq[:, :, None] * batch.col_valid[:, None, :]
+    mat = np.concatenate([mat, ch4[..., None]], axis=-1)  # (B,4,41,5)
+    total_ref = np.eye(5, dtype=np.float32)[batch.col_ref.astype(np.int64)]
+    total_ref[..., 4] = 0.0
+    flip = 1.0 - 2.0 * total_ref
+    data = np.concatenate([total_ref[:, None], mat * flip[:, None]], axis=1)
+    return data.astype(np.float32)
+
+
+@dataclass
 class SnpChunkScan:
     """Shared intermediates of the candidate scan (before payload
-    assembly): one per group member, produced by `_scan_group` and
-    consumed by `_assemble_group_payload`."""
+    assembly): one per chunk, produced by `_scan_chunk` or, one per
+    group member, by `_scan_group`, and consumed by the assemblers
+    (`_assemble_dense`, `_assemble_chunk_features`,
+    `_assemble_group_payload`)."""
 
     contig: str
     scan_start: int
@@ -326,6 +386,60 @@ def _scan_phase2(contig, scan_start, ref_codes, rw, p1: _ScanP1):
         fwd_dp=fwd_dp, rev_dp=rev_dp, counts_c=counts_c)
 
 
+def _scan_chunk(
+    bam,
+    fasta,
+    chunk,
+    *,
+    seq_type="ont",
+    mincov=4,
+    maxcov=160,
+    min_allele_freq=0.15,
+    min_nbr_sites=1,
+    threshold=(0.4, 0.6),
+    ploidy="diploid",
+    exclude=None,
+    rw: ReadWindow = None,
+):
+    """Candidate scan of one chunk; None when it has no candidate.
+
+    chunk: dict with 'chrom', 'start', 'end' (1-based inclusive, like the
+    reference's chunk dicts). Given `rw`, its reads are scanned instead
+    of a decode of the chunk's window.
+    """
+    contig = chunk["chrom"]
+    # 0-based scan window, 1-based parity with :137/:156
+    scan_start = max(0, chunk["start"] - 1 - SNP_HALO)
+    scan_end = chunk["end"] + SNP_HALO
+    cand_lo, cand_hi = chunk["start"] - 1, chunk["end"] - 1  # 0-based incl.
+
+    # two-phase decode: counts now, per-read codes only at the candidate
+    # ∪ neighbor sites later (None for a CRAM layout the C++ decoder does
+    # not implement: one Python decode then)
+    dd = deferred_decode(bam, contig, scan_start, scan_end) if rw is None \
+        else None
+    if rw is None and dd is None:
+        rw = decode_reads(bam, contig, scan_start, scan_end)
+    ref_str = fasta.fetch(contig, scan_start, scan_end)
+    scan_end = min(scan_end, scan_start + len(ref_str))
+    ref_codes = REF_CODE_LUT[np.frombuffer(ref_str.encode(), dtype=np.uint8)]
+
+    counts = dd.counts(scan_start, scan_end) if dd is not None \
+        else column_counts(rw, scan_start, scan_end)
+    p1 = _scan_phase1(
+        counts, ref_codes, scan_start, scan_end, cand_lo, cand_hi, contig,
+        seq_type=seq_type, mincov=mincov, min_allele_freq=min_allele_freq,
+        min_nbr_sites=min_nbr_sites, threshold=threshold, ploidy=ploidy,
+        exclude=exclude)
+    if p1 is None:
+        if dd is not None:
+            dd.close()
+        return None
+    if dd is not None:
+        rw = dd.finish(np.union1d(p1.nbr_pos, p1.cand_pos))
+    return _scan_phase2(contig, scan_start, ref_codes, rw, p1)
+
+
 
 def _member_window(rw_g: ReadWindow, contig, m_lo, m_hi):
     """Restrict a group-decoded ReadWindow to the reads overlapping
@@ -429,6 +543,201 @@ def _scan_group(
     return out, rw_g, ref_codes_g, g_lo, windows
 
 
+def get_snp_candidates(
+    bam,
+    fasta,
+    chunk,
+    *,
+    seq_type="ont",
+    mincov=4,
+    maxcov=160,
+    min_allele_freq=0.15,
+    min_nbr_sites=1,
+    threshold=(0.4, 0.6),
+    ploidy="diploid",
+    exclude=None,
+    rw: ReadWindow = None,
+):
+    """Scan one chunk and build its dense SnpBatch (possibly empty): the
+    oracle path (--no_dedup_transfer), equal in probabilities to
+    get_snp_chunk_features by construction."""
+    scan = _scan_chunk(
+        bam, fasta, chunk, seq_type=seq_type, mincov=mincov, maxcov=maxcov,
+        min_allele_freq=min_allele_freq, min_nbr_sites=min_nbr_sites,
+        threshold=threshold, ploidy=ploidy, exclude=exclude, rw=rw)
+    if scan is None:
+        return _empty_batch(chunk["chrom"])
+    return _assemble_dense(scan, maxcov)
+
+
+def _assemble_dense(scan: SnpChunkScan, maxcov) -> SnpBatch:
+    """Materialize the per-candidate (maxcov, 41) code matrices on the
+    host (mirrors generate_SNP_pileups.py:221-254): a normal row lists
+    its covering reads in ascending id order, a deep row (depth > maxcov)
+    its position-keyed sample."""
+    ref_codes = scan.ref_codes
+    scan_start = scan.scan_start
+    cand_pos = scan.cand_pos
+    sc = scan.sc
+    cand_site_i = scan.cand_site_i
+    nbr_site_of_col = scan.nbr_site_of_col
+    counts_c = scan.counts_c
+    B = len(cand_pos)
+
+    Rmax = maxcov
+    codes = np.full((B, Rmax, WIDTH), 4, dtype=np.int8)
+    read_mask = np.zeros((B, Rmax), dtype=bool)
+    col_ref = np.full((B, WIDTH), 4, dtype=np.int8)
+    col_valid = np.zeros((B, WIDTH), dtype=bool)
+    rid_mat = np.full((B, Rmax), -1, dtype=np.int64)
+    take = counts_c.copy()
+    deep = counts_c > maxcov
+    take[deep] = 0  # deep sites go through the seeded-downsampling loop
+    nz = np.flatnonzero(take > 0)
+    if len(nz):
+        row = np.repeat(nz, take[nz])
+        pos_in_row = _ragged_arange(take[nz])
+        src = np.repeat(sc.indptr[cand_site_i[nz]].astype(np.int64),
+                        take[nz]) + pos_in_row
+        rid_mat[row, pos_in_row] = sc.rid[src]
+        codes[row, pos_in_row, CENTER] = sc.code[src]
+        read_mask[row, pos_in_row] = True
+    sampled_depth = np.minimum(counts_c, maxcov).astype(np.int32)
+    col_ref[:, CENTER] = ref_codes[cand_pos - scan_start]
+    col_valid[:, CENTER] = True
+    for i in np.flatnonzero(deep):
+        # maxcov downsampling (deterministic, position-keyed)
+        rids, ccodes = sc.at(cand_site_i[i])
+        rng = np.random.default_rng((812 << 32) | int(cand_pos[i]))
+        pick = rng.choice(len(rids), size=maxcov, replace=False)
+        pick.sort()
+        read_mask[i, :maxcov] = True
+        rid_mat[i, :maxcov] = rids[pick]
+        codes[i, :maxcov, CENTER] = ccodes[pick]
+
+    # neighbor-column codes for all candidates in one (site, rid)-key
+    # lookup: the SiteCodes triplets are sorted by (site, rid), so one
+    # searchsorted over encoded keys replaces B×41 per-column queries
+    nbr_valid = nbr_site_of_col >= 0
+    if nbr_valid.any():
+        n_reads = scan.rw.n_reads
+        data_keys = sc.indexed_keys(n_reads)
+        qi, qw = np.nonzero(nbr_valid)
+        sites_q = nbr_site_of_col[qi, qw].astype(np.int64)
+        col_ref[qi, qw] = ref_codes[scan.union_sites[sites_q] - scan_start]
+        col_valid[qi, qw] = True
+        rids_q = rid_mat[qi]  # (Q, Rmax)
+        valid_r = rids_q >= 0
+        flat = (sites_q[:, None] * n_reads + rids_q)[valid_r]
+        pos = np.searchsorted(data_keys, flat)
+        ok = pos < len(data_keys)
+        ok[ok] = data_keys[pos[ok]] == flat[ok]
+        vals = np.full(len(flat), 4, dtype=np.int8)
+        vals[ok] = sc.code[pos[ok]]
+        out_block = np.full(rids_q.shape, 4, dtype=np.int8)
+        out_block[valid_r] = vals
+        codes[qi[:, None], np.arange(Rmax)[None, :], qw[:, None]] = out_block
+
+    return SnpBatch(
+        contig=scan.contig,
+        pos=cand_pos,
+        codes=codes,
+        read_mask=read_mask,
+        col_ref=col_ref,
+        col_valid=col_valid,
+        center_ref=col_ref[:, CENTER].copy(),
+        dp=scan.dp,
+        freq=scan.freq,
+        fwd_dp=scan.fwd_dp,
+        rev_dp=scan.rev_dp,
+        sampled_depth=sampled_depth,
+        nbr_counts=scan.nbr_counts,
+    )
+
+
+@dataclass
+class SnpChunkFeatures:
+    """One chunk's observation payload (the per-chunk path).
+
+    The interval + top-2-bitmask + exception/hole encoding of
+    SnpGroupFeatures (whose docstring gives the cell-code semantics) over
+    the chunk's own union sites and read ids, with the exceptions as a
+    site CSR of (rid << 3) | code; the candidates' union-site indices and
+    positions, the neighbor arrays the on-device band-quota selection
+    reads (select_neighbors' twin), the deep rows' sampled read ids, and
+    the host decode fields of SnpBatch.
+    """
+
+    contig: str
+    read_lo: np.ndarray  # int32[N] first observed union-site index
+    read_hi: np.ndarray  # int32[N] last observed union-site index (incl.)
+    exc_packed: np.ndarray  # uint16|uint32[E] (rid << 3) | code
+    exc_indptr: np.ndarray  # int32[S+1] CSR row pointers over union sites
+    hole_site: np.ndarray  # int32[H] unobserved in-span (site, rid) pairs
+    hole_rid: np.ndarray  # int32[H]
+    site_ref: np.ndarray  # int8[S] reference code per union site
+    site_major: np.ndarray  # int8[S] top-1 observed code per site
+    site_minor: np.ndarray  # int8[S] top-2 observed code (== top-1 if none)
+    minor_bits: np.ndarray  # uint8[ceil(total_span/8)]
+    n_reads: int
+    cand_site: np.ndarray  # int32[B] union-site index of the candidate
+    cand_pos32: np.ndarray  # int32[B] 0-based genomic position
+    nbr_pos: np.ndarray  # int32[M] sorted neighbor site positions
+    nbr_union: np.ndarray  # int32[M] union-site index of each neighbor
+    seq_type: str
+    deep_idx: np.ndarray  # int64[Bd] candidate indices (sorted)
+    deep_rids: np.ndarray  # int32[Bd, maxcov] sampled read ids (asc)
+    # host-side decode fields (SnpBatch's)
+    pos: np.ndarray
+    center_ref: np.ndarray
+    dp: np.ndarray
+    freq: np.ndarray
+    fwd_dp: np.ndarray
+    rev_dp: np.ndarray
+    sampled_depth: np.ndarray
+    nbr_counts: np.ndarray
+    maxcov: int = 160
+
+    @property
+    def coverage(self):
+        return float(np.mean(self.sampled_depth)) if len(self.pos) else 0.0
+
+    def __len__(self):
+        return len(self.pos)
+
+
+# a chunk whose (S + 1) × N site × read table would exceed this many
+# cells goes as the dense SnpBatch instead (the JAX package's cap on its
+# dense device table, kept so that both packages choose the same path)
+_TABLE_CELL_CAP = 1 << 27
+
+
+def get_snp_chunk_features(
+    bam,
+    fasta,
+    chunk,
+    *,
+    seq_type="ont",
+    mincov=4,
+    maxcov=160,
+    min_allele_freq=0.15,
+    min_nbr_sites=1,
+    threshold=(0.4, 0.6),
+    ploidy="diploid",
+    exclude=None,
+    rw: ReadWindow = None,
+):
+    """Scan one chunk and build its SnpChunkFeatures, or a dense SnpBatch
+    when its site×read table would exceed _TABLE_CELL_CAP cells."""
+    scan = _scan_chunk(
+        bam, fasta, chunk, seq_type=seq_type, mincov=mincov, maxcov=maxcov,
+        min_allele_freq=min_allele_freq, min_nbr_sites=min_nbr_sites,
+        threshold=threshold, ploidy=ploidy, exclude=exclude, rw=rw)
+    if scan is None:
+        return _empty_chunk_features(chunk["chrom"], maxcov)
+    return _assemble_chunk_features(scan, maxcov, seq_type)
+
+
 def _encode_interval_exceptions(sc, n_reads, S):
     """Interval + exception + top-2-bitmask encoding of a SiteCodes
     observation set (SnpGroupFeatures docstring): per-read observed-site
@@ -507,6 +816,105 @@ def _encode_interval_exceptions(sc, n_reads, S):
         hole_rid = np.concatenate(hr)
     return (read_lo, read_hi, site_major, site_minor, minor_bits,
             exc_site, exc_rid, exc_code, hole_site, hole_rid)
+
+
+def _assemble_chunk_features(scan: SnpChunkScan, maxcov, seq_type):
+    """SnpChunkFeatures from a completed scan, or its dense SnpBatch when
+    the chunk's site×read table is over _TABLE_CELL_CAP cells."""
+    sc = scan.sc
+    S = len(scan.union_sites)
+    n_reads = scan.rw.n_reads
+    if (S + 1) * max(n_reads, 1) > _TABLE_CELL_CAP:
+        return _assemble_dense(scan, maxcov)
+
+    ev_dtype = np.uint16 if n_reads < (1 << 13) else np.uint32
+    site_ref = scan.ref_codes[scan.union_sites - scan.scan_start].astype(
+        np.int8)
+    (read_lo, read_hi, site_major, site_minor, minor_bits,
+     exc_site, exc_rid, exc_code, hole_site, hole_rid) = \
+        _encode_interval_exceptions(sc, n_reads, S)
+    exc_packed = ((exc_rid.astype(np.int64) << 3)
+                  | exc_code.astype(np.int64)).astype(ev_dtype)
+    exc_indptr = np.searchsorted(
+        exc_site, np.arange(S + 1, dtype=np.int32)).astype(np.int32)
+    counts_c = scan.counts_c
+    deep_idx = np.flatnonzero(counts_c > maxcov)
+    deep_rids = np.zeros((len(deep_idx), maxcov), np.int32)
+    for k, i in enumerate(deep_idx):
+        # the position-keyed RNG stream of the dense path, so both sample
+        # the same reads
+        lo = int(sc.indptr[scan.cand_site_i[i]])
+        rng = np.random.default_rng((812 << 32) | int(scan.cand_pos[i]))
+        pick = rng.choice(int(counts_c[i]), size=maxcov, replace=False)
+        pick.sort()
+        deep_rids[k] = sc.rid[lo + pick]
+
+    return SnpChunkFeatures(
+        contig=scan.contig,
+        read_lo=read_lo,
+        read_hi=read_hi,
+        exc_packed=exc_packed,
+        exc_indptr=exc_indptr,
+        hole_site=hole_site,
+        hole_rid=hole_rid,
+        site_ref=site_ref,
+        site_major=site_major,
+        site_minor=site_minor,
+        minor_bits=minor_bits,
+        n_reads=n_reads,
+        cand_site=scan.cand_site_i.astype(np.int32),
+        cand_pos32=scan.cand_pos.astype(np.int32),
+        nbr_pos=scan.nbr_pos.astype(np.int32),
+        nbr_union=np.searchsorted(scan.union_sites,
+                                  scan.nbr_pos).astype(np.int32),
+        seq_type=seq_type,
+        deep_idx=deep_idx,
+        deep_rids=deep_rids,
+        pos=scan.cand_pos,
+        center_ref=site_ref[scan.cand_site_i].copy(),
+        dp=scan.dp,
+        freq=scan.freq,
+        fwd_dp=scan.fwd_dp,
+        rev_dp=scan.rev_dp,
+        sampled_depth=np.minimum(counts_c, maxcov).astype(np.int32),
+        nbr_counts=scan.nbr_counts,
+        maxcov=maxcov,
+    )
+
+
+def get_snp_group_features(
+    bam,
+    fasta,
+    members,
+    *,
+    seq_type="ont",
+    mincov=4,
+    maxcov=160,
+    min_allele_freq=0.15,
+    min_nbr_sites=1,
+    threshold=(0.4, 0.6),
+    exclude=None,
+    dedup=True,
+):
+    """Scan a group of adjacent chunks off one decoded window and build
+    each member's own payload (SnpChunkFeatures, or the dense SnpBatch
+    where dedup=False or the member is over _TABLE_CELL_CAP): the list,
+    aligned with members, equals get_snp_chunk_features /
+    get_snp_candidates chunk by chunk."""
+    scans, _rw, _ref, _lo, _w = _scan_group(
+        bam, fasta, members, seq_type=seq_type, mincov=mincov, maxcov=maxcov,
+        min_allele_freq=min_allele_freq, min_nbr_sites=min_nbr_sites,
+        threshold=threshold, exclude=exclude)
+    out = []
+    for m, scan in zip(members, scans):
+        if scan is None:
+            out.append(_empty_chunk_features(m["chrom"], maxcov) if dedup
+                       else _empty_batch(m["chrom"]))
+        elif not dedup:
+            out.append(_assemble_dense(scan, maxcov))
+        else:
+            out.append(_assemble_chunk_features(scan, maxcov, seq_type))
+    return out
 
 
 @dataclass
@@ -613,18 +1021,19 @@ def get_snp_group_payloads(
     threshold=(0.4, 0.6),
     exclude=None,
 ):
-    """Scan a group off one decoded window and build its payloads: a list
-    of SnpGroupFeatures whose members, in order, are `members` as
-    (member dict, SnpGroupMember or None).
+    """Scan a group off one decoded window and build its payloads, in
+    member order: SnpGroupFeatures, whose members are (member dict,
+    SnpGroupMember or None), or (member dict, SnpChunkFeatures |
+    SnpBatch) for a member over the payload caps on its own.
 
     One payload for the whole group, or — where it is over the payload
     caps or its neighbor lists fail the cross-check — one single-member
     payload per member, built from that member's own scan (its reads,
     id space and sites are a standalone scan's), which the caller sends
-    through the same group path. A group without candidates gives one
-    payload of empty members. A member over the caps on its own raises
-    NotImplementedError: the per-chunk kernels (ROADMAP B6) are not
-    ported."""
+    through the same group path. A member that is itself over the caps
+    comes back as the JAX package's per-member fallback builds it
+    (_assemble_chunk_features of its scan). A group without candidates
+    gives one payload of empty members."""
     scans, rw_g, ref_codes_g, g_lo, windows = _scan_group(
         bam, fasta, members, seq_type=seq_type, mincov=mincov,
         maxcov=maxcov, min_allele_freq=min_allele_freq,
@@ -643,16 +1052,8 @@ def get_snp_group_payloads(
         one = _assemble_group_payload(
             [m], [scan], scan.rw, ref_codes_g[m_lo - g_lo: m_hi - g_lo],
             m_lo, [(m_lo, m_hi)], maxcov, seq_type)
-        if one is None:
-            raise NotImplementedError(
-                "SNP chunk %s:%d-%d is over the payload caps on its own "
-                "(%d decoded reads, %d sites; caps %d and %d): its "
-                "per-chunk path needs the SNP per-chunk kernels, not "
-                "ported yet (ROADMAP B6)"
-                % (m["chrom"], m["start"], m["end"], scan.rw.n_reads,
-                   len(scan.union_sites), _GROUP_MAX_READS,
-                   _GROUP_MAX_SITES))
-        out.append(one)
+        out.append(one if one is not None else
+                   (m, _assemble_chunk_features(scan, maxcov, seq_type)))
     return out
 
 
@@ -755,3 +1156,33 @@ def _empty_group(members, seq_type, maxcov):
         exc_site=i32(), exc_rid=i32(), exc_code=i8(), hole_site=i32(),
         hole_rid=i32(), nbr_pos=i32(), nbr_union=i32(),
         members=[(m, None) for m in members])
+
+
+def _empty_chunk_features(contig, maxcov):
+    i32 = lambda: np.zeros(0, np.int32)
+    i8 = lambda: np.zeros(0, np.int8)
+    return SnpChunkFeatures(
+        contig=contig, read_lo=i32(), read_hi=i32(),
+        exc_packed=np.zeros(0, np.uint16), exc_indptr=np.zeros(1, np.int32),
+        hole_site=i32(), hole_rid=i32(), site_ref=i8(), site_major=i8(),
+        site_minor=i8(), minor_bits=np.zeros(0, np.uint8), n_reads=0,
+        cand_site=i32(), cand_pos32=i32(), nbr_pos=i32(), nbr_union=i32(),
+        seq_type="ont", deep_idx=np.zeros(0, np.int64),
+        deep_rids=np.zeros((0, maxcov), np.int32), pos=np.zeros(0, np.int64),
+        center_ref=i8(), dp=i32(), freq=np.zeros(0, np.float32),
+        fwd_dp=np.zeros((0, 4), np.int32), rev_dp=np.zeros((0, 4), np.int32),
+        sampled_depth=i32(), nbr_counts=i32(), maxcov=maxcov)
+
+
+def _empty_batch(contig):
+    return SnpBatch(
+        contig=contig, pos=np.zeros(0, np.int64),
+        codes=np.zeros((0, 1, WIDTH), np.int8),
+        read_mask=np.zeros((0, 1), bool),
+        col_ref=np.zeros((0, WIDTH), np.int8),
+        col_valid=np.zeros((0, WIDTH), bool),
+        center_ref=np.zeros(0, np.int8), dp=np.zeros(0, np.int32),
+        freq=np.zeros(0, np.float32), fwd_dp=np.zeros((0, 4), np.int32),
+        rev_dp=np.zeros((0, 4), np.int32),
+        sampled_depth=np.zeros(0, np.int32),
+        nbr_counts=np.zeros(0, np.int32))

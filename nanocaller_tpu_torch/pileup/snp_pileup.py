@@ -1,5 +1,5 @@
-"""K3 `snp_pileup`: the SNP group kernel from the group payload to the
-CNN's input, its plain PyTorch twin, and its launch counter.
+"""K3 `snp_pileup`: the SNP group kernel from an observation payload to
+the CNN's input, its plain PyTorch twin, and its launch counters.
 
 The hand-written CUDA kernel (csrc/snp_pileup.cu, built with K1 and K2
 into the library of align/nw_kernels.py) replaces the XLA-jitted body of
@@ -12,6 +12,16 @@ codes (`_group_cell_codes`) and the pileup assembly of
 One launch takes a cohort of candidate rows against one group payload and
 writes the (B, 5, 41, 5) float32 NHWC tensor the SNP CNN takes, the
 selected column sites (B, 41) and the centre-ref one-hot (B, 4).
+
+The same kernel serves a single chunk's payload (SnpChunkFeatures, the
+per-chunk path): `chunk_wire` lays it out as a group wire, and the
+chunk's rows run with their windows clamped to the whole neighbour
+array, [0, M). That is the JAX package's per-chunk device path
+(_build_obs_tables_impl + _rid_matrix + _device_select_neighbors +
+_gather_forward_impl, snp_caller.py:180-414) without its dense site x
+read table: at full clamps the clamped selection is the unclamped one,
+and K3 counts every covering read of a normal row, which _rid_matrix
+lists whole because its R is at least every normal row's depth.
 
 `snp_pileup` takes its twin `snp_pileup_reference` only for tensors on
 the CPU; for CUDA tensors it launches the kernel or raises.
@@ -27,8 +37,10 @@ import torch
 from ..align import nw_kernels
 from .snp_features import BAND_SCHEDULES, CENTER, WIDTH
 
-# launches of K3 (the wrapper adds one where it launches the kernel)
+# launches of K3 (the wrapper adds one where it launches the kernel),
+# in all and by the kind of wire ("group" or "chunk")
 SNP_PILEUP_LAUNCHES = 0
+BY_WIRE = {"group": 0, "chunk": 0}
 # rows of the band table a side: the most bands any schedule has
 MAX_BANDS = 7
 
@@ -36,6 +48,7 @@ MAX_BANDS = 7
 def reset_counters():
     global SNP_PILEUP_LAUNCHES
     SNP_PILEUP_LAUNCHES = 0
+    BY_WIRE.update(group=0, chunk=0)
 
 
 def band_table(seq_type):
@@ -83,6 +96,8 @@ class PileupWire:
                                   and their union-site indices (which
                                   do not decrease either)
     bands                         int32 (2, MAX_BANDS, 4), band_table
+    kind                          "group" (group_wire) or "chunk"
+                                  (chunk_wire); not a kernel argument
     """
 
     read_lo: torch.Tensor
@@ -103,6 +118,7 @@ class PileupWire:
     nbr_pos: torch.Tensor
     nbr_union: torch.Tensor
     bands: torch.Tensor
+    kind: str = "group"
 
     @property
     def n_reads(self):
@@ -117,8 +133,10 @@ class PileupWire:
         return self.nbr_pos.shape[0]
 
     def tensors(self):
-        """The fields in declaration order, the kernel's argument order."""
-        return tuple(getattr(self, f.name) for f in fields(self))
+        """The tensor fields in declaration order, the kernel's argument
+        order."""
+        return tuple(getattr(self, f.name) for f in fields(self)
+                     if f.name != "kind")
 
 
 def group_wire(gf, device):
@@ -132,13 +150,31 @@ def group_wire(gf, device):
     Raises ValueError, before any copy, if nbr_pos or nbr_union is not
     sorted (K3 counts a read's cells over the columns it reaches, which
     needs the columns' sites in order)."""
+    rows = np.arange(len(gf.site_ref) + 2, dtype=np.int32)
+    return _wire(gf, np.searchsorted(gf.exc_site, rows).astype(np.int32),
+                 gf.exc_rid, gf.exc_code, device, "group")
+
+
+def chunk_wire(feats, device):
+    """A chunk's payload (SnpChunkFeatures) → a PileupWire on `device`, as
+    group_wire lays out a group's: the exceptions' site CSR over S + 1
+    rows gains the trash row S (empty), and each (rid << 3) | code entry
+    splits into exc_rid and exc_code. K3 takes its rows with lo_c = 0 and
+    hi_c = M."""
+    packed = np.asarray(feats.exc_packed, np.int64)
+    indptr = np.asarray(feats.exc_indptr, np.int32)
+    return _wire(feats, np.append(indptr, indptr[-1]).astype(np.int32),
+                 packed >> 3, packed & 7, device, "chunk")
+
+
+def _wire(gf, exc_indptr, exc_rid, exc_code, device, kind):
     S = len(gf.site_ref)
     i32 = np.int32
     nbr_pos = np.asarray(gf.nbr_pos, i32)
     nbr_union = np.asarray(gf.nbr_union, i32)
     for name, a in (("nbr_pos", nbr_pos), ("nbr_union", nbr_union)):
         if len(a) > 1 and (np.diff(a) < 0).any():
-            raise ValueError("group_wire: %s must be sorted" % name)
+            raise ValueError("%s_wire: %s must be sorted" % (kind, name))
     trash = np.full(1, 4, np.int8)
     read_lo = np.asarray(gf.read_lo, i32)
     read_hi = np.asarray(gf.read_hi, i32)
@@ -154,16 +190,15 @@ def group_wire(gf, device):
         site_ref=site(gf.site_ref), site_major=site(gf.site_major),
         site_minor=site(gf.site_minor),
         minor_bits=np.asarray(gf.minor_bits, np.uint8),
-        exc_indptr=np.searchsorted(gf.exc_site, rows).astype(i32),
-        exc_rid=np.asarray(gf.exc_rid, i32),
-        exc_code=np.asarray(gf.exc_code, np.int8),
+        exc_indptr=exc_indptr, exc_rid=np.asarray(exc_rid, i32),
+        exc_code=np.asarray(exc_code, np.int8),
         hole_indptr=np.searchsorted(gf.hole_site, rows).astype(i32),
         hole_rid=np.asarray(gf.hole_rid, i32),
         order=order, win_lo=win_lo, win_hi=win_hi,
         nbr_pos=nbr_pos, nbr_union=nbr_union,
         bands=band_table(gf.seq_type))
     return PileupWire(**{k: torch.from_numpy(np.ascontiguousarray(v))
-                         .to(device) for k, v in host.items()})
+                         .to(device) for k, v in host.items()}, kind=kind)
 
 
 def site_depth(gf):
@@ -242,9 +277,8 @@ def _check_inputs(wire, cand_site, cand_pos, lo_c, hi_c, norm, deep_rids,
         hole_rid=(wire.hole_rid.shape[0],), order=(N,), win_lo=(S + 1,),
         win_hi=(S + 1,), nbr_pos=(M,), nbr_union=(M,),
         bands=(2, MAX_BANDS, 4))
-    for f in fields(wire):
-        _check(getattr(wire, f.name), f.name, _WIRE_DTYPES[f.name],
-               shapes[f.name], dev)
+    for name, dtype in _WIRE_DTYPES.items():
+        _check(getattr(wire, name), name, dtype, shapes[name], dev)
     B = cand_site.shape[0] if cand_site.dim() == 1 else -1
     for name, t in (("cand_site", cand_site), ("cand_pos", cand_pos),
                     ("lo_c", lo_c), ("hi_c", hi_c)):
@@ -263,13 +297,14 @@ def _check_inputs(wire, cand_site, cand_pos, lo_c, hi_c, norm, deep_rids,
 
 def snp_pileup(wire, cand_site, cand_pos, lo_c, hi_c, norm, deep_rids=None,
                n_valid=None):
-    """Pileups of B candidate rows against one group payload.
+    """Pileups of B candidate rows against one payload.
 
-    wire: PileupWire; cand_site (B,) int32 union-site index; cand_pos (B,)
-    int32 position; lo_c, hi_c (B,) int32 the member's window
-    [lo_c, hi_c) of the neighbour arrays; norm (B,) float32 coverage
-    scale; for deep rows deep_rids (B, D) int32 explicit read ids and
-    n_valid (B,) int32 (the first n_valid count).
+    wire: PileupWire (group_wire or chunk_wire); cand_site (B,) int32
+    union-site index; cand_pos (B,) int32 position; lo_c, hi_c (B,)
+    int32 the member's window [lo_c, hi_c) of the neighbour arrays
+    ([0, M) on a chunk wire); norm (B,) float32 coverage scale; for deep
+    rows deep_rids (B, D) int32 explicit read ids and n_valid (B,) int32
+    (the first n_valid count).
     → (x, soc, ref): x (B, 5, 41, 5) float32, NHWC: row 0 the columns'
     ref one-hot, rows 1-4 the signed, scaled counts of the reads with
     centre base A/G/T/C and the ref channel; soc (B, 41) int32 the union
@@ -302,6 +337,7 @@ def snp_pileup(wire, cand_site, cand_pos, lo_c, hi_c, norm, deep_rids=None,
     if rc != 0:
         raise RuntimeError("snp_pileup launch failed: cudaError %d" % rc)
     SNP_PILEUP_LAUNCHES += 1
+    BY_WIRE[wire.kind] += 1
     return out, soc, ref
 
 

@@ -2,15 +2,16 @@
 
 The device has one owner, the main process. Under `--cpu N` the host
 work fans out to N worker processes (started with `spawn` by
-runtime/scheduler.py): the SNP group payloads, the per-contig phasing
-and the indel job records. A worker stops before anything that runs on
-the device: it returns the indel candidates' MSA jobs, and the main
-process aligns every worker's pairs on the card (kernels K1, K2, K4,
-pileup/indel_features.finish_indel_jobs) and builds the SNP pileups
-(kernel K3). A worker that imported torch could create a CUDA context
-and hold card memory, so this module and everything it imports use only
-io/, pileup/ (not snp_pileup.py), phase/, align/{nw,msa}.py, numpy and
-the standard library.
+runtime/scheduler.py): the SNP payloads (by decode group or by chunk),
+the per-contig phasing and the indel job records. A worker stops before
+anything that runs on the device: it returns the indel candidates' MSA
+jobs, and the main process aligns every worker's pairs on the card
+(kernels K1, K2, K4, pileup/indel_features.finish_indel_jobs) and builds
+the SNP pileups (kernels K3 and K5). A worker that imported torch could
+create a CUDA context and hold card memory, so this module and
+everything it imports use only io/, pileup/ (not snp_pileup.py or
+snp_dense.py), phase/, align/{nw,msa}.py, numpy and the standard
+library.
 
 Each task returns, last, the number of CRAM windows its Python decoder
 took, which the main process adds to its own reader's count.
@@ -61,28 +62,61 @@ def _bam_for(path):
     return cache[path]
 
 
+def snp_features_worker(task):
+    """(idx, chunk) → (idx, SnpChunkFeatures | SnpBatch, python_windows):
+    one chunk decoded and scanned on its own (snp_group_span <= -1), as
+    SnpChunkFeatures, or the dense SnpBatch under dedup_transfer=False
+    (and where the chunk is over _TABLE_CELL_CAP)."""
+    idx, chunk = task
+    from ..pileup.snp_features import (get_snp_candidates,
+                                       get_snp_chunk_features)
+
+    cfg = _G["cfg"]
+    builder = get_snp_chunk_features if cfg["dedup_transfer"] \
+        else get_snp_candidates
+    feats = builder(
+        _G["bam"], _G["fasta"], chunk,
+        seq_type=cfg["sequencing"], mincov=cfg["mincov"],
+        maxcov=cfg["maxcov"], min_allele_freq=cfg["min_allele_freq"],
+        min_nbr_sites=cfg["min_nbr_sites"], threshold=cfg["threshold"],
+        ploidy=chunk.get("ploidy", "diploid"), exclude=_G["exclude"])
+    return idx, feats, _python_windows()
+
+
 def snp_features_group_worker(task):
     """(idx, [(orig_idx, chunk), ...]) → (idx, payloads, python_windows).
 
     The coordinate-adjacent chunks of a decode group are decoded once
-    and scanned (pileup/snp_features.get_snp_group_payloads): one
-    SnpGroupFeatures for the group, or one a member where the group is
-    over the payload caps. Each payload's members are (orig_idx,
-    SnpGroupMember | None). The per-chunk and dense SNP paths stay
-    unported (snp_caller._check_supported raises, naming A2b/B6)."""
+    and scanned. By default (pileup/snp_features.get_snp_group_payloads)
+    the payloads are one SnpGroupFeatures for the group, or one a member
+    where the group is over the payload caps, each with members
+    (orig_idx, SnpGroupMember | None), and (orig_idx, SnpChunkFeatures |
+    SnpBatch) for a member over the caps on its own. With
+    snp_group_payload=False or dedup_transfer=False every member comes
+    back as (orig_idx, its own payload) (get_snp_group_features)."""
     idx, group = task
-    from ..pileup.snp_features import get_snp_group_payloads
+    from ..pileup.snp_features import (get_snp_group_features,
+                                       get_snp_group_payloads)
 
     cfg = _G["cfg"]
-    payloads = get_snp_group_payloads(
-        _G["bam"], _G["fasta"], [c for _, c in group],
+    kw = dict(
         seq_type=cfg["sequencing"], mincov=cfg["mincov"],
         maxcov=cfg["maxcov"], min_allele_freq=cfg["min_allele_freq"],
         min_nbr_sites=cfg["min_nbr_sites"], threshold=cfg["threshold"],
         exclude=_G["exclude"])
+    chunks = [c for _, c in group]
+    if not (cfg["dedup_transfer"] and cfg["snp_group_payload"]):
+        feats = get_snp_group_features(_G["bam"], _G["fasta"], chunks,
+                                       dedup=cfg["dedup_transfer"], **kw)
+        return idx, [(oi, f) for (oi, _), f in zip(group, feats)], \
+            _python_windows()
+    payloads = get_snp_group_payloads(_G["bam"], _G["fasta"], chunks, **kw)
     idx_of = {id(c): oi for oi, c in group}
-    for gf in payloads:
-        gf.members = [(idx_of[id(m)], sec) for m, sec in gf.members]
+    for k, p in enumerate(payloads):
+        if isinstance(p, tuple):
+            payloads[k] = (idx_of[id(p[0])], p[1])
+        else:
+            p.members = [(idx_of[id(m)], sec) for m, sec in p.members]
     return idx, payloads, _python_windows()
 
 
@@ -226,6 +260,8 @@ def cfg_kwargs_for_workers(cfg):
         del_threshold=cfg.del_threshold, win_size=cfg.win_size,
         small_win_size=cfg.small_win_size,
         impute_indel_phase=cfg.impute_indel_phase,
+        dedup_transfer=cfg.dedup_transfer,
+        snp_group_payload=cfg.snp_group_payload,
         phase_qual_score=cfg.phase_qual_score,
         phase_cell_budget=cfg.phase_cell_budget,
         enable_whatshap=cfg.enable_whatshap)

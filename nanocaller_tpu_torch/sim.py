@@ -435,3 +435,32 @@ def random_group_wire(rng, S, N, B, max_span=None, bitmask=True,
     hi_c = i32(np.select([kind == 0, kind == 1], [M, hi_r], hi_n))
     norm = rng.uniform(0.3, 3.0, B).astype(np.float32)
     return wire, cand_site, cand_pos, lo_c, hi_c, norm
+
+
+def random_dense_batch(rng, B, R, deep_share=0.25):
+    """Random inputs of the dense SNP pileup (kernel K5) at B rows and R
+    reads, in the manner of a dense SnpBatch: per row the first `depth`
+    reads masked in (deep_share of the rows with every read, as a deep
+    row's sample fills the read axis), the reads past it masked out but
+    carrying random codes (which must count nothing); codes 0-4 with one
+    in five 4 (no base); 1-20 valid columns a side around the centre,
+    col_ref 4 at the others; a random centre ref (4, N, in one row of
+    fifty) and coverage scale.
+
+    Returns (codes int8 (B, R, 41), read_mask bool (B, R), col_ref int8
+    (B, 41), col_valid bool (B, 41), center_ref int8 (B,), norm float32
+    (B,))."""
+    codes = rng.integers(0, 5, (B, R, 41)).astype(np.int8)
+    depth = np.where(rng.random(B) < deep_share, R,
+                     rng.integers(0, R + 1, B))
+    read_mask = np.arange(R)[None, :] < depth[:, None]
+    cols = np.arange(41)[None, :]
+    n_left = rng.integers(1, 21, B)[:, None]
+    n_right = rng.integers(1, 21, B)[:, None]
+    col_valid = (cols >= 20 - n_left) & (cols <= 20 + n_right)
+    col_ref = np.where(col_valid, rng.integers(0, 4, (B, 41)), 4)
+    center_ref = np.where(rng.random(B) < 0.02, 4, col_ref[:, 20])
+    col_ref[:, 20] = center_ref
+    norm = rng.uniform(0.3, 3.0, B).astype(np.float32)
+    return (codes, read_mask, col_ref.astype(np.int8), col_valid,
+            center_ref.astype(np.int8), norm)

@@ -1,19 +1,28 @@
-"""SNP calling: group pileups on the device (kernel K3) + CNN + genotype
-decode + VCF output.
+"""SNP calling: pileups on the device (kernels K3 and K5) + CNN +
+genotype decode + VCF output.
 
-The group path of nanocaller_tpu/snp_caller.py, with the same semantics:
+The SNP stage of nanocaller_tpu/snp_caller.py, with the same semantics:
 coverage normalization (snpCaller.py:93-96), the per-base-probability
 genotype decision tree (:113-163), haploid decode (:166-198), Phred
 formulas incl. the haploid ×100 scale (:192), VCF text formats byte for
 byte, and the two-file output contract ({prefix}.unfiltered.snps.vcf.gz
 + PASS-only {prefix}.snps.vcf.gz).
 
-Per decode group the host builds one observation payload
-(pileup/snp_features.py; one per member where the group is over the
-payload caps, each then a group of one); on the state's device, kernel K3
-(pileup/snp_pileup.py) selects each candidate's 41 neighbour columns and
-builds its pileup from the payload, one launch a cohort, and the SNP CNN
-(models/snp.py, torch/cuDNN) runs on it.
+The host builds the observation payloads (pileup/snp_features.py) and
+this process turns them into pileups on the state's device, by one of
+three paths, as the JAX package's payload types choose them:
+- a decode group's SnpGroupFeatures (the main path; one per member where
+  the group is over the payload caps, each then a group of one):
+  kernel K3 (pileup/snp_pileup.py) selects each candidate's 41
+  neighbour columns and builds its pileup, one launch a cohort
+  (infer_snp_group);
+- a chunk's SnpChunkFeatures (--no_snp_group_payload, snp_group_span
+  <= -1, a chunk over the group payload caps on its own): K3 on the
+  chunk's wire, its windows the whole neighbour array (infer_snp_chunk);
+- a chunk's dense SnpBatch (--no_dedup_transfer, a chunk over
+  _TABLE_CELL_CAP): kernel K5 (pileup/snp_dense.py) (infer_snp_batch).
+The three build the same x, bit for bit, for the same candidates; the
+SNP CNN (models/snp.py, torch/cuDNN) runs on it in cfg.batch_size rows.
 """
 
 from __future__ import annotations
@@ -29,7 +38,9 @@ from .io.vcf import VcfWriter, standard_snp_header, view_filter
 from .models import (HaploidSNPModel, SNPModel, load_model,
                      torch_state_dict_from_params)
 from .models.registry import HAPLOID_TRAIN_COVERAGE
-from .pileup.snp_pileup import group_wire, site_depth, snp_pileup
+from .pileup.snp_dense import snp_dense_pileup
+from .pileup.snp_features import SnpChunkFeatures, SnpGroupFeatures
+from .pileup.snp_pileup import chunk_wire, group_wire, site_depth, snp_pileup
 from .runtime.chunker import group_adjacent_chunks
 from .runtime.device import resolve_device
 
@@ -72,16 +83,36 @@ class SnpCallerState:
                    device=dev)
 
 
-def _member_norm(state, sec, cfg):
-    """Coverage scale of a member's rows in numpy float32, as the JAX
-    package computes it (snp_caller.py:1442-1449)."""
-    train_cov = state.hap_train_coverage if sec.ploidy == "haploid" \
+def _coverage_norm(state, feats, ploidy, cfg):
+    """Coverage scale of a payload's rows (a group member, a chunk's
+    features or a dense batch) in numpy float32, as the JAX package
+    computes it (snp_caller.py:1081-1086, :1166-1172, :1442-1449)."""
+    train_cov = state.hap_train_coverage if ploidy == "haploid" \
         else state.train_coverage
     if cfg.disable_coverage_normalization:
-        return train_cov / np.maximum(sec.dp.astype(np.float32), 1e-6)
-    cov = sec.coverage
-    return np.full(len(sec), train_cov / cov if cov > 0 else 1.0,
+        return train_cov / np.maximum(feats.dp.astype(np.float32), 1e-6)
+    cov = feats.coverage
+    return np.full(len(feats), train_cov / cov if cov > 0 else 1.0,
                    np.float32)
+
+
+def _check_depth(depth, rows, maxcov):
+    """K3 counts every covering read of a normal row: refuse a normal row
+    deeper than maxcov (the payload's deep rows carry sampled ids)."""
+    if len(rows) and depth[rows].max() > maxcov:
+        raise ValueError("a normal row is deeper than maxcov=%d" % maxcov)
+
+
+def _snp_cnn(state, ploidy, x, ref, bs):
+    """The SNP CNN over x (B, 5, 41, 5) in slices of bs rows → the (B, 4)
+    probabilities on x's device."""
+    probs = []
+    for lo in range(0, x.shape[0], bs):
+        xs, rs = x[lo:lo + bs], ref[lo:lo + bs]
+        probs.append(state.hap_model(xs, rs) if ploidy == "haploid"
+                     else state.model(xs, rs)[0][:, :, 1])
+    return torch.cat(probs) if probs else torch.zeros(
+        (0, 4), device=x.device)
 
 
 def pileup_cohorts(state, gf, cfg):
@@ -101,16 +132,15 @@ def pileup_cohorts(state, gf, cfg):
         if sec is None or len(sec) == 0:
             continue
         B = len(sec)
-        norm = _member_norm(state, sec, cfg)
+        norm = _coverage_norm(state, sec, sec.ploidy, cfg)
         deep_mask = np.zeros(B, bool)
         deep_mask[sec.deep_idx] = True
         for deep in (False, True):
             rows = sec.deep_idx if deep else np.flatnonzero(~deep_mask)
             if not len(rows):
                 continue
-            if not deep and depth[sec.cand_site[rows]].max() > gf.maxcov:
-                raise ValueError("a normal row is deeper than maxcov=%d"
-                                 % gf.maxcov)
+            if not deep:
+                _check_depth(depth, sec.cand_site[rows], gf.maxcov)
             c = cohorts.setdefault((sec.ploidy, deep), {
                 "cand_site": [], "cand_pos": [], "norm": [], "lo": [],
                 "hi": [], "mi": [], "j": [], "rids": []})
@@ -167,12 +197,7 @@ def infer_snp_group(state, gf, cfg, async_mode=False):
         for ploidy, _deep, args, mis, js in pileup_cohorts(state, gf, cfg):
             # ref: the centre-ref one-hot, all zero for N as jax.nn.one_hot's
             x, _soc, ref = snp_pileup(*args)
-            probs = []
-            for lo in range(0, x.shape[0], bs):
-                xs, rs = x[lo:lo + bs], ref[lo:lo + bs]
-                probs.append(state.hap_model(xs, rs) if ploidy == "haploid"
-                             else state.model(xs, rs)[0][:, :, 1])
-            parts.append((mis, js, torch.cat(probs)))
+            parts.append((mis, js, _snp_cnn(state, ploidy, x, ref, bs)))
 
     def finish():
         for mis, js, probs in parts:
@@ -183,6 +208,101 @@ def infer_snp_group(state, gf, cfg, async_mode=False):
         return outs
 
     return finish if async_mode else finish()
+
+
+def chunk_cohorts(state, feats, cfg, ploidy):
+    """K3's launches for one chunk's payload (SnpChunkFeatures) called at
+    `ploidy`, as infer_snp_chunk makes them: the payload goes to
+    state.device once as a chunk wire, and the chunk's normal rows, then
+    its deep rows, take one launch each with their windows the whole
+    neighbour array [0, M). Returns [(deep, args, rows)] where
+    snp_pileup(*args) builds the pileups of the candidates `rows`.
+    Normal rows count every covering read (checked within maxcov, for
+    both devices); deep rows count their host-sampled read ids."""
+    dev = state.device
+    B = len(feats)
+    if B == 0:
+        return []
+    norm = _coverage_norm(state, feats, ploidy, cfg)
+    deep_mask = np.zeros(B, bool)
+    deep_mask[feats.deep_idx] = True
+    normal = np.flatnonzero(~deep_mask)
+    _check_depth(site_depth(feats), feats.cand_site[normal], feats.maxcov)
+    wire = chunk_wire(feats, dev)
+    put = lambda a, dtype=np.int32: torch.from_numpy(
+        np.ascontiguousarray(a, dtype)).to(dev)
+    out = []
+    for deep, rows in ((False, normal), (True, feats.deep_idx)):
+        n = len(rows)
+        if not n:
+            continue
+        rids = n_valid = None
+        if deep:
+            rids = put(feats.deep_rids)
+            n_valid = torch.full((n,), feats.maxcov, dtype=torch.int32,
+                                 device=dev)
+        args = (wire, put(feats.cand_site[rows]), put(feats.cand_pos32[rows]),
+                put(np.zeros(n)), put(np.full(n, wire.n_nbrs)),
+                put(norm[rows], np.float32), rids, n_valid)
+        out.append((deep, args, rows))
+    return out
+
+
+def _finisher(B, parts, async_mode):
+    out = np.zeros((B, 4), np.float32)
+
+    def finish():
+        for rows, probs in parts:
+            out[rows] = probs.cpu().numpy()
+        return out
+
+    return finish if async_mode else finish()
+
+
+def infer_snp_chunk(state, feats, cfg, ploidy, async_mode=False):
+    """Run the model over one chunk's SnpChunkFeatures: K3 on the chunk's
+    wire (chunk_cohorts), the CNN in cfg.batch_size rows.
+
+    Returns the (B, 4) probabilities in candidate order (async_mode=True:
+    a zero-arg finisher returning them; the launches are queued on the
+    current stream and the finisher does the device→host copy)."""
+    parts = []
+    with torch.inference_mode():
+        for _deep, args, rows in chunk_cohorts(state, feats, cfg, ploidy):
+            x, _soc, ref = snp_pileup(*args)
+            parts.append((rows, _snp_cnn(state, ploidy, x, ref,
+                                         cfg.batch_size)))
+    return _finisher(len(feats), parts, async_mode)
+
+
+def infer_snp_batch(state, batch, cfg, ploidy, async_mode=False):
+    """Run the model over one chunk's dense SnpBatch: one K5 launch over
+    its rows (codes cut to the deepest row's sampled reads, which lie
+    first in every row), the CNN in cfg.batch_size rows. Returns as
+    infer_snp_chunk does."""
+    B = len(batch)
+    parts = []
+    if B:
+        norm = _coverage_norm(state, batch, ploidy, cfg)
+        R_b = max(1, int(batch.sampled_depth.max()))
+        dev = state.device
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        with torch.inference_mode():
+            x, ref = snp_dense_pileup(
+                put(batch.codes[:, :R_b]), put(batch.read_mask[:, :R_b]),
+                put(batch.col_ref), put(batch.col_valid),
+                put(batch.center_ref), put(norm))
+            parts.append((np.arange(B), _snp_cnn(state, ploidy, x, ref,
+                                                 cfg.batch_size)))
+    return _finisher(B, parts, async_mode)
+
+
+def infer_snp_any(state, feats, cfg, ploidy, async_mode=False):
+    """A chunk's payload by its type: SnpChunkFeatures on K3
+    (infer_snp_chunk), a dense SnpBatch on K5 (infer_snp_batch)."""
+    infer = infer_snp_chunk if isinstance(feats, SnpChunkFeatures) \
+        else infer_snp_batch
+    return infer(state, feats, cfg, ploidy, async_mode=async_mode)
 
 
 def decode_diploid(batch, probs):
@@ -275,7 +395,9 @@ def decode_haploid(batch, probs):
 
 
 def _group_adjacent(ordered_chunks, todo, cfg):
-    """Pack coordinate-adjacent pending chunks into shared-decode groups.
+    """Pack coordinate-adjacent pending chunks into shared-decode groups;
+    None for snp_group_span <= -1 (one decode a chunk:
+    runtime/workers.snp_features_worker).
 
     The group span adapts to keep ≥ ~4 tasks per feature worker while
     amortizing the ±50 kb halo re-decode and per-window decode setup.
@@ -283,9 +405,7 @@ def _group_adjacent(ordered_chunks, todo, cfg):
     or ploidy changes."""
     span_cap = int(getattr(cfg, "snp_group_span", 0) or 0)
     if span_cap <= -1:
-        raise NotImplementedError(
-            "snp_group_span <= -1 (the per-chunk SNP path) is not ported "
-            "yet: ROADMAP A2b (kernels B6)")
+        return None
     if span_cap == 0:
         total = sum(c["end"] - c["start"] + 1 for c in ordered_chunks)
         span_cap = max(500_000,
@@ -293,39 +413,33 @@ def _group_adjacent(ordered_chunks, todo, cfg):
     return group_adjacent_chunks(ordered_chunks, todo, span_cap)
 
 
-def _check_supported(cfg):
-    for flag, on in (("dedup_transfer", cfg.dedup_transfer),
-                     ("snp_group_payload", cfg.snp_group_payload)):
-        if not on:
-            raise NotImplementedError(
-                "%s=False (the per-chunk / dense SNP oracle paths) is not "
-                "ported yet: ROADMAP A2b (kernels B6)" % flag)
-
-
 def call_snps(cfg, bam, regions_list, chunks, out_dir, progress=None,
               manifest=None, metrics=None, exclude_path=None):
     """Run SNP calling over all chunks; write unfiltered + PASS VCFs.
 
-    Each decode group's payloads are built on the host by
-    runtime/workers.snp_features_group_worker from cfg.bam, cfg.ref and
-    exclude_path: inline at --cpu 1, by cfg.cpu feature workers
-    otherwise, in completion order (runtime/scheduler.feature_stream).
-    The CRAM windows those decodes gave the Python decoder are added to
-    `bam`'s count (the main process's reader). This process infers
-    them on the device with up to cfg.snp_pipeline_depth groups in
-    flight (a group's device→host copy and decode wait until the next
-    group's launches are queued); lines are stored by chunk index, so
-    the order of arrival changes nothing. With a RunManifest, completed
-    chunks are reloaded from their shard files. The `snp.features` timer
-    is this process's wait for the next group's payloads. Returns the
-    PASS VCF path (snpCaller.py:287)."""
+    The payloads are built on the host from cfg.bam, cfg.ref and
+    exclude_path, inline at --cpu 1 and by cfg.cpu feature workers
+    otherwise, in completion order (runtime/scheduler.feature_stream):
+    one task a decode group (runtime/workers.snp_features_group_worker),
+    or one a chunk where cfg.snp_group_span <= -1
+    (snp_features_worker). The CRAM windows those decodes gave the
+    Python decoder are added to `bam`'s count (the main process's
+    reader). This process infers each payload on the device by its type
+    (SnpGroupFeatures: infer_snp_group; a chunk's SnpChunkFeatures or
+    SnpBatch: infer_snp_any) with up to cfg.snp_pipeline_depth payloads
+    in flight (a payload's device→host copy and decode wait until the
+    next one's launches are queued); lines are stored by chunk index,
+    so the order of arrival changes nothing. With a RunManifest,
+    completed chunks are reloaded from their shard files. The
+    `snp.features` timer is this process's wait for the next task's
+    payloads. Returns the PASS VCF path (snpCaller.py:287)."""
     from contextlib import nullcontext
 
     from .runtime.scheduler import feature_stream
     from .runtime.workers import (cfg_kwargs_for_workers,
-                                  snp_features_group_worker)
+                                  snp_features_group_worker,
+                                  snp_features_worker)
 
-    _check_supported(cfg)
     state = SnpCallerState.create(cfg.snp_model, device=cfg.device)
     timer = metrics.timer if metrics is not None else (lambda _: nullcontext())
     contigs = list(dict.fromkeys(x[0] for x in regions_list))
@@ -358,42 +472,57 @@ def call_snps(cfg, bam, regions_list, chunks, out_dir, progress=None,
         if progress:
             progress(1)
 
-    in_flight = []  # [(gf, finisher)]
+    # [(members, finisher)]: members [(chunk index, payload section)] and
+    # finisher() their probabilities, one array a member
+    in_flight = []
     depth = max(1, int(cfg.snp_pipeline_depth))
 
     def _finalize_one():
-        gf, finish = in_flight.pop(0)
-        outs = finish()
-        for (oi, sec), probs in zip(gf.members, outs):
+        members, finish = in_flight.pop(0)
+        for (oi, sec), probs in zip(members, finish()):
             if sec is None or len(sec) == 0:
                 _store(oi, [])
-            elif sec.ploidy == "haploid":
+            elif ordered_chunks[oi].get("ploidy") == "haploid":
                 _store(oi, decode_haploid(sec, probs))
             else:
                 _store(oi, decode_diploid(sec, probs))
 
+    def _infer(p):
+        if isinstance(p, SnpGroupFeatures):
+            return p.members, infer_snp_group(state, p, cfg, async_mode=True)
+        idx, feats = p
+        ploidy = ordered_chunks[idx].get("ploidy", "diploid")
+        finish = infer_snp_any(state, feats, cfg, ploidy, async_mode=True)
+        return [p], lambda: [finish()]
+
+    init_args = (cfg.bam, cfg.ref, cfg_kwargs_for_workers(cfg), exclude_path)
     groups = _group_adjacent(ordered_chunks, todo, cfg)
-    stream = feature_stream(
-        groups, snp_features_group_worker,
-        (cfg.bam, cfg.ref, cfg_kwargs_for_workers(cfg), exclude_path),
-        cfg.cpu)
+    if groups is None:
+        stream = ((i, [(todo[i], feats)], pyw) for i, feats, pyw in
+                  feature_stream([ordered_chunks[i] for i in todo],
+                                 snp_features_worker, init_args, cfg.cpu))
+    else:
+        stream = feature_stream(groups, snp_features_group_worker,
+                                init_args, cfg.cpu)
     while True:
         with timer("snp.features"):
             item = next(stream, None)
         if item is None:
             break
-        _gi, payloads, py_windows = item
+        _i, payloads, py_windows = item
         if py_windows:
             bam.note_python_windows(py_windows)
-        # a group over the payload caps comes back as one payload a member
-        for gf in payloads:
-            if metrics is not None:
-                metrics.count("snp_candidates", len(gf))
+        # a decode group's payload, one a member where the group is over
+        # the payload caps, or (chunk index, its own payload)
+        for p in payloads:
             with timer("snp.infer_decode"):
-                finish = infer_snp_group(state, gf, cfg, async_mode=True)
+                members, finish = _infer(p)
                 while len(in_flight) >= depth:
                     _finalize_one()
-                in_flight.append((gf, finish))
+                in_flight.append((members, finish))
+            if metrics is not None:
+                metrics.count("snp_candidates", sum(
+                    len(sec) for _oi, sec in members if sec is not None))
     with timer("snp.infer_decode"):
         while in_flight:  # drain the inference pipeline
             _finalize_one()

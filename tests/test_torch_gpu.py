@@ -9,8 +9,13 @@ a simulated group, random payloads (holes, dense exceptions, reads out
 of start order, a read over every site, every band schedule, clamped
 windows), one row, rows without neighbours, at the first and last site,
 deep rows with no valid id, windows longer than the kernel's list, and
-the wrapper's refusals; a SNP decode group over the payload caps, sent
-member by member (one K3 launch a member), against its uncapped run;
+the wrapper's refusals; K3 on a chunk wire (the per-chunk path's rows,
+normal and deep, windows over the whole neighbour array), its x equal to
+K5's on the same chunk's dense batch; K5 (snp_dense_pileup) at B = 4096
+and R = 32, 64, 160 with deep and masked-off rows, uint8 masks, one row,
+no row, and the wrapper's refusals; a SNP decode group over the payload
+caps, sent member by member (one K3 launch a member), against its
+uncapped run;
 `--mode all --cpu 2` on cuda against cpu, with no CUDA context in a
 worker. Skips without a GPU.
 
@@ -31,13 +36,17 @@ from nanocaller_tpu_torch.align.batch_nw import (BatchAligner, encode_pairs,
 from nanocaller_tpu_torch.align.nw import nw_align, unpack_cigar
 from nanocaller_tpu_torch.io.bam import BamReader
 from nanocaller_tpu_torch.io.fasta import FastaFile, write_fasta
+from nanocaller_tpu_torch.pileup import snp_dense as K5
 from nanocaller_tpu_torch.pileup import snp_pileup as K3
 from nanocaller_tpu_torch.pileup.snp_features import (BAND_SCHEDULES,
+                                                      get_snp_candidates,
+                                                      get_snp_chunk_features,
                                                       get_snp_group_payloads)
 from nanocaller_tpu_torch.sim import (BASES, TIE_KINDS, make_diploid_readset,
-                                      random_group_wire, random_seq,
-                                      tie_heavy_pairs, write_bam)
-from nanocaller_tpu_torch.snp_caller import SnpCallerState, pileup_cohorts
+                                      random_dense_batch, random_group_wire,
+                                      random_seq, tie_heavy_pairs, write_bam)
+from nanocaller_tpu_torch.snp_caller import (SnpCallerState, _coverage_norm,
+                                             chunk_cohorts, pileup_cohorts)
 
 from torch_threads import _torch_threads  # noqa: F401 (autouse)
 
@@ -389,6 +398,113 @@ def test_snp_pileup_wrapper_refuses():
     with pytest.raises(ValueError, match="win_hi"):
         K3.snp_pileup(dataclasses.replace(wire, win_hi=wire.win_hi[:-1]),
                       *rows)
+
+
+@pytest.fixture(scope="module")
+def snp_chunk(tmp_path_factory):
+    """(state, {maxcov: (SnpChunkFeatures, SnpBatch)}) of one 40 kb chunk
+    of a simulated 60 kb, 30x contig (its scan window is the whole
+    contig); maxcov 24 gives deep rows."""
+    _need_gpu()
+    tmp = tmp_path_factory.mktemp("gpu_snp_chunk")
+    rng = np.random.default_rng(16)
+    L = 60000
+    ref = random_seq(rng, L)
+    snps = [(p, BASES[(BASES.index(ref[p]) + 1) % 4],
+             ("het1", "het2", "hom")[k % 3])
+            for k, p in enumerate(range(400, L - 400, 700))]
+    reads = make_diploid_readset(rng, ref, snps=snps, depth=30,
+                                 read_len=2000, error_rate=0.03)
+    fa, bam_p = str(tmp / "ref.fa"), str(tmp / "reads.bam")
+    write_fasta(fa, {"chr_t": ref})
+    write_bam(bam_p, "chr_t", L, reads)
+    chunk = {"chrom": "chr_t", "start": 10001, "end": 50000,
+             "ploidy": "diploid"}
+    out = {}
+    for maxcov in (160, 24):
+        args = (BamReader(bam_p), FastaFile(fa), chunk)
+        out[maxcov] = (get_snp_chunk_features(*args, maxcov=maxcov),
+                       get_snp_candidates(*args, maxcov=maxcov))
+    return SnpCallerState.create("ONT-HG002", device="cuda"), out
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("maxcov", [160, 24])
+def test_snp_pileup_on_chunk_wire(snp_chunk, maxcov):
+    """K3 on the chunk's wire against its twin, exactly, one launch a
+    cohort counted as a chunk launch; the x it builds equals, bit for
+    bit, K5's on the same chunk's dense batch."""
+    state, chunks = snp_chunk
+    feats, batch = chunks[maxcov]
+    B = len(feats)
+    assert B > 20 and (len(feats.deep_idx) > 0) == (maxcov == 24)
+    x = torch.zeros((B, 5, 41, 5), device="cuda")
+    launches = K3.BY_WIRE["chunk"]
+    cohorts = chunk_cohorts(state, feats, _Cfg(), "diploid")
+    assert [d for d, _, _ in cohorts] == ([False, True] if maxcov == 24
+                                          else [False])
+    for _deep, args, rows in cohorts:
+        assert args[0].kind == "chunk"
+        x[_t(rows)] = _k3_equal(args)[0]
+    assert K3.BY_WIRE["chunk"] == launches + len(cohorts)
+    norm = _coverage_norm(state, feats, "diploid", _Cfg())
+    dense = (_t(batch.codes), _t(batch.read_mask), _t(batch.col_ref),
+             _t(batch.col_valid), _t(batch.center_ref), _t(norm))
+    xd, _ = K5.snp_dense_pileup(*dense)
+    torch.cuda.synchronize()
+    assert torch.equal(x, xd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [32, 64, 160])
+def test_dense_pileup_matches_twin(R):
+    """K5 against its twin at B = 4096, exactly, with deep rows (every
+    read masked in) and reads masked off with codes; one launch."""
+    _need_gpu()
+    args = [_t(a) for a in random_dense_batch(np.random.default_rng(R),
+                                              4096, R)]
+    before = K5.SNP_DENSE_LAUNCHES
+    got = K5.snp_dense_pileup(*args)
+    want = K5.snp_dense_pileup_reference(*args)
+    torch.cuda.synchronize()
+    assert K5.SNP_DENSE_LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+    assert float(got[0][:, 1:].abs().sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R", [(1, 1), (1, 200), (0, 64), (37, 129)])
+def test_dense_pileup_edges(B, R):
+    """One row, a read axis past a tile of 128, no row; uint8 masks."""
+    _need_gpu()
+    rng = np.random.default_rng(B * 1000 + R)
+    host = random_dense_batch(rng, max(B, 1), R)
+    args = [_t(a[:B]) for a in host]
+    args[1], args[3] = args[1].to(torch.uint8), args[3].to(torch.uint8)
+    got = K5.snp_dense_pileup(*args)
+    want = K5.snp_dense_pileup_reference(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_dense_pileup_wrapper_refuses():
+    _need_gpu()
+    args = [_t(a) for a in random_dense_batch(np.random.default_rng(2),
+                                              8, 16)]
+    with pytest.raises(ValueError, match="on cpu"):
+        K5.snp_dense_pileup(*args[:5], args[5].cpu())
+    with pytest.raises(TypeError, match="codes"):
+        K5.snp_dense_pileup(args[0].long(), *args[1:])
+    with pytest.raises(ValueError, match="col_ref"):
+        K5.snp_dense_pileup(*args[:2], args[2][:, :40].contiguous(),
+                            *args[3:])
 
 
 def _snp_records(path):

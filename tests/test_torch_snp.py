@@ -556,13 +556,3 @@ def test_group_over_caps_goes_member_by_member(a2a_fixture, monkeypatch):
     whole = _call_snps("port", a2a_fixture, "port_whole", 1 << 15,
                        monkeypatch)
     assert [len(p) for p in payloads] == [1] and whole == got
-
-
-def test_member_over_caps_raises_naming_b6(a2a_fixture, monkeypatch):
-    from nanocaller_tpu_torch.pileup import snp_features as p_sf
-
-    _tmp, fasta_p, bam_p, _cap = a2a_fixture
-    monkeypatch.setattr(p_sf, "_GROUP_MAX_READS", 10)
-    with pytest.raises(NotImplementedError, match="B6"):
-        get_snp_group_payloads(BamReader(bam_p), FastaFile(fasta_p),
-                               [dict(c) for c in A2A_CHUNKS])
