@@ -124,6 +124,28 @@ Phases, each printing one JSON line per case:
    run launched it on (the kernels line's K5 row) and on the over-caps
    chunk's dense batches.
 
+15. several processes and devices (phase_dist) on phase 12's fixture,
+   every run at --cpu 4 (so that every run cuts the same 500 kb
+   chunks), each cuda run with the counters reset just before and read
+   just after: (a) one process; (b) `--coordinator localhost:P
+   --num_processes 2 --process_id i` as two concurrent processes of this
+   script (`--cli-child`) on this card, joined by Gloo, process 0 taking
+   chr1 and chrX and process 1 chr2 (shard_regions), while nvidia-smi
+   and the maps of both processes' workers are polled (two device owners
+   at most, no worker mapping libcuda): process 0's merged five VCFs
+   record for record against (a) (compare_records; the rounding cases
+   counted), the summed K1/K2/K4 pairs and K3 rows equal to (a)'s, and
+   `global_counts` in both metrics.host00i.json equal to (a)'s counts,
+   with each process's start-up (spawn to a CUDA context), Gloo connect
+   and run times; (c) `--num_shards 2 --shard_index 0|1` one after the
+   other, then `--merge_shards`, held as (b); (d) `--num_shards 2` on
+   phase 11's 500 kb cut, which shard_regions splits into two 250 kb
+   pieces, cuda against cpu; (e) two replicas on this card
+   (sharding.inference_devices monkeypatched to [cuda:0, cuda:0], a
+   per-device batch of DP_BATCH rows): the SNP group, chunk and dense
+   routes' and the indel CNN's probabilities equal to one replica's
+   bit for bit, K3 and K5 launched once a cohort and replica.
+
 Then one JSON line with every kernel's launches (on the main path's
 --mode all --cpu N run; each path's own under launches_by_path), error
 and times, the nvidia-smi line, and as the last line
@@ -255,6 +277,18 @@ CRAM_FIXTURE_LEN = 500_000
 DAG_CONTIGS = [("chr1", 2_000_000, 3031, 1000, 5000, False),
                ("chr2", 2_000_000, 3032, 1000, 5000, False),
                ("chrX", 500_000, 3033, 1000, 5000, True)]
+# phase 15's --cpu: get_chunks cuts min(500,000, total / cpu + 1) bp
+# chunks, so at 4 the whole fixture (4.5 Mb) and each process's share
+# (chr1 + chrX 2.5 Mb, chr2 2 Mb) all chunk at 500,000: every run cuts
+# the same chunks and calls the same records
+DIST_CPU = 4
+DIST_TIMEOUT_S = 300
+DIST_VCFS = (("unfiltered.snps", "snp"), ("snps", "snp"),
+             ("snps.phased", "snp"), ("indels", "indel"), ("", "any"))
+# phase 15(e): the per-device CNN batch (cfg.batch_size) that spreads
+# each cohort's rows over two replicas, and the indel CNN's random rows
+DP_BATCH = 256
+DP_INDEL_ROWS = 1000
 
 
 def emit(obj):
@@ -673,12 +707,16 @@ def _snp_record(x, y):
     return diffs
 
 
-def compare_records(a, b, kind):
+def compare_records(a, b, kind, by_contig=False):
     """The cuda and cpu VCFs a and b record by record, by the SNP rules
     (kind "snp"), the indel rules ("indel") or, in a VCF of both, each
-    record's own ("any": SNP records carry FQ). Returns (records, the
-    one-unit rounding cases)."""
+    record's own ("any": SNP records carry FQ). by_contig: each file's
+    records grouped by contig name first (a merge of region shards lists
+    the contigs shard by shard). Returns (records, the one-unit rounding
+    cases)."""
     ra, rb = _records(a), _records(b)
+    if by_contig:
+        ra, rb = (sorted(r, key=lambda x: x[0]) for r in (ra, rb))
     if len(ra) != len(rb):
         fail("%s: cuda VCF has %d records, cpu VCF %d"
              % (os.path.basename(a), len(ra), len(rb)))
@@ -961,7 +999,7 @@ def k3_cases(fasta_p, bam_p):
             maxcov=maxcov, min_allele_freq=cfg.min_allele_freq,
             min_nbr_sites=cfg.min_nbr_sites, threshold=cfg.threshold)
         gf.members = [(i, sec) for i, (_m, sec) in enumerate(gf.members)]
-        for p, deep, args, _mi, _j in pileup_cohorts(state, gf, cfg):
+        for p, deep, args, _mi, _j, _r in pileup_cohorts(state, gf, cfg):
             yield "%s_%s%s" % (label, p, "_deep" if deep else ""), args, gf
 
     for g in (0, 1):
@@ -1509,9 +1547,10 @@ def x_routes(state, cfg, bam_p, fasta_p, member, maxcov, feats):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     xs = {r: torch.zeros((B, 5, WIDTH, 5), device=dev)
           for r in ("group", "chunk")}
-    for _p, _deep, args, _mi, js in pileup_cohorts(state, gf, cfg):
+    for _p, _deep, args, _mi, js, _r in pileup_cohorts(state, gf, cfg):
         xs["group"][t(js)] = K3.snp_pileup(*args)[0]
-    for _deep, args, rows in chunk_cohorts(state, feats, cfg, "diploid"):
+    for _deep, args, rows, _r in chunk_cohorts(state, feats, cfg,
+                                                 "diploid"):
         xs["chunk"][t(rows)] = K3.snp_pileup(*args)[0]
     k5, xs["dense"] = k5_row("caps_dense_maxcov%d" % maxcov, [
         t(batch.codes), t(batch.read_mask), t(batch.col_ref),
@@ -1735,7 +1774,7 @@ def phase_a2b(tmp, snp_fasta, snp_bam, cut_fasta, cut_bam):
         for maxcov, label in ((cfg.maxcov, "caps_chunk"),
                               (CAPS_MAXCOV, "caps_chunk_maxcov48")):
             run_label = "caps" if maxcov == cfg.maxcov else "caps_deep"
-            for deep, args, _rows in chunk_cohorts(
+            for deep, args, _rows, _r in chunk_cohorts(
                     state, feats[maxcov], cfg, "diploid"):
                 k3_rows.append(k3_row(
                     label + ("_deep" if deep else ""), args, feats[maxcov],
@@ -1794,8 +1833,9 @@ class CudaContextWatch:
     """Polls, on a thread, nvidia-smi's compute apps (the PIDs that hold
     a CUDA context on the card; in a container it may list none, or
     PIDs of the host's namespace, so `smi_polls_with_pids` says how many
-    polls listed any) and the memory maps of this process's children
-    (every child: one that loaded the CUDA driver maps libcuda).
+    polls listed any) and the memory maps of the device owners' children
+    (`owners`, this process by default; every child: one that loaded
+    the CUDA driver maps libcuda).
     `workers` are the children that are spawn's pool workers.
 
     A child that `spawn` (or any subprocess) has forked but not yet
@@ -1808,9 +1848,12 @@ class CudaContextWatch:
     `fork_windows` counts the polls that met one. A child that has
     exec'd and maps libcuda counts at once."""
 
-    def __init__(self, period=0.25, fork_grace=2.0):
+    def __init__(self, period=0.25, fork_grace=2.0, owners=None):
         import threading
 
+        # the device owners whose children are watched (this process by
+        # default; phase 15's two --num_processes processes)
+        self.owners = owners or [os.getpid()]
         self.period, self.fork_grace = period, fork_grace
         self.smi_pids, self.workers, self.cuda_children = set(), set(), set()
         self.polls = self.smi_polls_with_pids = self.fork_windows = 0
@@ -1836,8 +1879,7 @@ class CudaContextWatch:
             self.cuda_children.add(c)
 
     def _run(self):
-        me = os.getpid()
-        mine = _cmdline(me)
+        mine = {o: _cmdline(o) for o in self.owners}
         while not self._stop.is_set():
             try:
                 out = subprocess.run(
@@ -1850,8 +1892,9 @@ class CudaContextWatch:
             except (OSError, subprocess.SubprocessError):
                 pass
             now = time.monotonic()
-            for c in _child_pids(me):
-                self._check_child(c, mine, now)
+            for owner in self.owners:
+                for c in _child_pids(owner):
+                    self._check_child(c, mine[owner], now)
             self.polls += 1
             self._stop.wait(self.period)
 
@@ -2033,7 +2076,7 @@ def phase_dag(tmp):
           "launches_k1": K.NW_TB_LAUNCHES,
           "copies_us": sum(us for k, (us, _) in dev.items()
                            if "Memcpy" in k or "Memset" in k)})
-    return counts
+    return counts, fasta_p, bam_p
 
 
 class HostWalkWatch:
@@ -2160,6 +2203,338 @@ def phase_ccs(tmp, fasta_p, bam_p):
     return counts
 
 
+def _smi_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def kernel_counts(K, K3, K5):
+    """Every kernel's launch counter, K1/K2/K4's pairs (summed over the
+    buckets) and K3's rows, as a phase 15 run reads them."""
+    pairs = {}
+    for (kernel, _q, _r), (_n, b) in K.BY_BUCKET.items():
+        pairs[kernel] = pairs.get(kernel, 0) + b
+    return {"SNP_PILEUP_LAUNCHES": K3.SNP_PILEUP_LAUNCHES,
+            "SNP_PILEUP_ROWS": K3.SNP_PILEUP_ROWS,
+            "SNP_DENSE_LAUNCHES": K5.SNP_DENSE_LAUNCHES,
+            "NW_TB_LAUNCHES": K.NW_TB_LAUNCHES,
+            "NW_WALK_LAUNCHES": K.NW_WALK_LAUNCHES,
+            "NW_CIGAR_LAUNCHES": K.NW_CIGAR_LAUNCHES,
+            "pairs": pairs}
+
+
+def cli_child(argv):
+    """One process of phase 15(b), started by this script with
+    `--cli-child ARGV_JSON`: joins the process group, resets the
+    counters, runs the CLI and prints one JSON line of its counters and
+    times (spawn to a CUDA context, the Gloo connect, the run)."""
+    t_spawn = float(os.environ["CHIP_SMOKE_T_SPAWN"])
+    sys.path.insert(0, HERE)
+    import torch
+    from nanocaller_tpu_torch import cli
+    from nanocaller_tpu_torch.align import nw_kernels as K
+    from nanocaller_tpu_torch.pileup import snp_dense as K5
+    from nanocaller_tpu_torch.pileup import snp_pileup as K3
+    from nanocaller_tpu_torch.runtime import distributed
+
+    imported = time.time() - t_spawn
+    torch.zeros(1, device="cuda")
+    startup = time.time() - t_spawn
+    cfg = cli.config_from_args(argv)
+    t0 = time.perf_counter()
+    distributed.initialize(cfg.coordinator, cfg.num_processes,
+                           cfg.process_id)
+    gloo = time.perf_counter() - t0
+    K.reset_counters()
+    K3.reset_counters()
+    K5.reset_counters()
+    t0 = time.perf_counter()
+    cli.main(argv)
+    wall = time.perf_counter() - t0
+    emit({"process_id": cfg.process_id, "import_s": imported,
+          "startup_s": startup, "gloo_init_s": gloo, "run_s": wall,
+          "counts": kernel_counts(K, K3, K5)})
+    return 0
+
+
+def _sum_counts(counts):
+    out = {"pairs": {}}
+    for c in counts:
+        for k, v in c.items():
+            if k == "pairs":
+                for kk, vv in v.items():
+                    out["pairs"][kk] = out["pairs"].get(kk, 0) + vv
+            else:
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def _held(label, got, want, names=DIST_VCFS):
+    """Each of got's five VCFs record for record against want's
+    (compare_records' rules, contig by contig: the merge lists process
+    0's contigs first); returns the rounding cases."""
+    cases = []
+    for name, kind in names:
+        _, diffs = compare_records(got(name), want(name), kind,
+                                   by_contig=True)
+        cases += [dict(d, vcf=name, run=label) for d in diffs]
+    for d in cases:
+        emit({"phase": "dist_rounding_case", **d})
+    return cases
+
+
+def phase_dist(tmp, dag_fasta, dag_bam, cut_fasta, cut_bam):
+    """Phase 15: multi-process, region-sharded and data-parallel runs of
+    the main path on phase 12's fixture at --cpu 4 (see the module
+    docstring). Returns the summed counters of (b)'s two processes."""
+    from nanocaller_tpu_torch import cli
+    from nanocaller_tpu_torch.align import nw_kernels as K
+    from nanocaller_tpu_torch.pileup import snp_dense as K5
+    from nanocaller_tpu_torch.pileup import snp_pileup as K3
+
+    t_phase = time.perf_counter()
+    out = lambda name: os.path.join(tmp, "dist_" + name)
+
+    def argv(bam_p, fasta_p, dest, dev="cuda", *extra):
+        return ["--bam", bam_p, "--ref", fasta_p, "--mode", "all", "--cpu",
+                str(DIST_CPU), "--haploid_X", "--device", dev, "--output",
+                dest, "--prefix", "smoke", "--sample", "S",
+                "--suppress_progress_bar", *extra]
+
+    vcf = lambda d: lambda name: os.path.join(
+        d, "smoke.%s.vcf.gz" % name if name else "smoke.vcf.gz")
+
+    def drive(args):
+        K.reset_counters()
+        K3.reset_counters()
+        K5.reset_counters()
+        t0 = time.perf_counter()
+        cli.main(args)
+        return time.perf_counter() - t0, kernel_counts(K, K3, K5)
+
+    # (a) one process
+    wall_a, counts_a = drive(argv(dag_bam, dag_fasta, out("a")))
+    with open(os.path.join(out("a"), "metrics.json")) as fh:
+        metrics_a = json.load(fh)
+    metrics_a, metrics_a_timers = metrics_a["counts"], metrics_a["timers_s"]
+
+    # (b) two processes on this card, joined by Gloo
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    coord = "localhost:%d" % sock.getsockname()[1]
+    sock.close()
+    env = dict(os.environ, CHIP_SMOKE_T_SPAWN=repr(time.time()))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cli-child",
+         json.dumps(argv(dag_bam, dag_fasta, out("b"), "cuda",
+                         "--coordinator", coord, "--num_processes", "2",
+                         "--process_id", str(i)))],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    children, ends = [], {}
+    try:
+        with CudaContextWatch(owners=[p.pid for p in procs]) as watch:
+            for i, p in enumerate(procs):
+                o, e = p.communicate(timeout=DIST_TIMEOUT_S)
+                ends[i] = time.perf_counter() - t0
+                if p.returncode != 0:
+                    fail("--num_processes 2: process %d exited %d: %s"
+                         % (i, p.returncode, e[-3000:]))
+                children.append(json.loads(o.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_b = time.perf_counter() - t0
+    counts_b = _sum_counts([c["counts"] for c in children])
+    cases_b = _held("2proc", vcf(out("b")), vcf(out("a")))
+    for key in ("SNP_PILEUP_ROWS", "pairs"):
+        if counts_b[key] != counts_a[key]:
+            fail("the two processes' %s (%s) are not the single run's (%s)"
+                 % (key, counts_b[key], counts_a[key]))
+    timers = {"a": metrics_a_timers}
+    for i in range(2):
+        with open(os.path.join(out("b"), "metrics.host%03d.json" % i)) as fh:
+            m = json.load(fh)
+        timers["b%d" % i] = m["timers_s"]
+        if m.get("global_counts") != metrics_a or m.get("hosts") != 2:
+            fail("metrics.host%03d.json: global_counts %s, hosts %s; the "
+                 "single run counted %s" % (i, m.get("global_counts"),
+                                            m.get("hosts"), metrics_a))
+    if len(watch.smi_pids) > 2 or watch.cuda_children:
+        fail("a process other than the two device owners held a CUDA "
+             "context: nvidia-smi %s, workers mapping libcuda %s"
+             % (sorted(watch.smi_pids), sorted(watch.cuda_children)))
+    if len(watch.workers) < 2:
+        fail("saw %d spawned worker processes under the two processes"
+             % len(watch.workers))
+
+    # (c) two shard runs one after the other, then --merge_shards
+    t0 = time.perf_counter()
+    counts_c = []
+    for i in range(2):
+        counts_c.append(drive(argv(dag_bam, dag_fasta, out("c"), "cuda",
+                                   "--num_shards", "2", "--shard_index",
+                                   str(i)))[1])
+    cli.main(argv(dag_bam, dag_fasta, out("c"), "cuda", "--num_shards", "2",
+                  "--merge_shards"))
+    wall_c = time.perf_counter() - t0
+    counts_c = _sum_counts(counts_c)
+    cases_c = _held("shards", vcf(out("c")), vcf(out("a")))
+    for key in ("SNP_PILEUP_ROWS", "pairs"):
+        if counts_c[key] != counts_a[key]:
+            fail("the two shard runs' %s (%s) are not the single run's (%s)"
+                 % (key, counts_c[key], counts_a[key]))
+
+    # (d) one contig split sub-contig: cuda shards against cpu shards
+    from nanocaller_tpu_torch.io.bam import BamReader
+    from nanocaller_tpu_torch.runtime.distributed import shard_regions
+    from nanocaller_tpu_torch.runtime.chunker import get_regions_list
+
+    regions = get_regions_list(cli.config_from_args(
+        argv(cut_bam, cut_fasta, out("x"))), BamReader(cut_bam))
+    pieces = [shard_regions(regions, i, 2) for i in range(2)]
+    if [len(p) for p in pieces] != [1, 1]:
+        fail("the 500 kb cut did not split into one piece a shard: %s"
+             % pieces)
+    walls_d = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        for i in range(2):
+            cli.main(argv(cut_bam, cut_fasta, out("d_" + dev), dev,
+                          "--num_shards", "2", "--shard_index", str(i)))
+        cli.main(argv(cut_bam, cut_fasta, out("d_" + dev), dev,
+                      "--num_shards", "2", "--merge_shards"))
+        walls_d[dev] = time.perf_counter() - t0
+    cases_d = _held("split", vcf(out("d_cuda")), vcf(out("d_cpu")))
+
+    # (e) two replicas on this card
+    dp = phase_dp(dag_fasta, dag_bam)
+    emit({"phase": "dist", "cpu": DIST_CPU,
+          "nvidia_smi": _smi_line(),
+          "walls_s": {"a_1proc": wall_a, "b_2proc_whole": wall_b,
+                      "b_2proc_ends": ends, "c_shards_and_merge": wall_c,
+                      "d_split_cuda": walls_d["cuda"],
+                      "d_split_cpu": walls_d["cpu"],
+                      "phase": time.perf_counter() - t_phase},
+          "b_processes": children, "timers_s": timers,
+          "rounding_cases": {"b": len(cases_b), "c": len(cases_c),
+                             "d": len(cases_d)},
+          "d_pieces": pieces, "launches_a": counts_a,
+          "launches_b": counts_b, "launches_c": counts_c,
+          "global_counts": metrics_a,
+          "workers_seen": len(watch.workers),
+          "nvidia_smi_compute_pids": sorted(watch.smi_pids), **dp})
+    return counts_b
+
+
+def phase_dp(fasta_p, bam_p):
+    """Phase 15(e): the SNP group, chunk and dense routes and the indel
+    CNN with two replicas on this card (sharding.inference_devices
+    monkeypatched to [cuda:0, cuda:0]) against one replica: the
+    probabilities equal bit for bit, K3 and K5 launched once a cohort
+    and replica. A per-device batch of DP_BATCH rows spreads each cohort's
+    rows over both replicas."""
+    import numpy as np
+    import torch
+    from nanocaller_tpu_torch import indel_caller as I
+    from nanocaller_tpu_torch import snp_caller as S
+    from nanocaller_tpu_torch.config import Config
+    from nanocaller_tpu_torch.io.bam import BamReader
+    from nanocaller_tpu_torch.io.fasta import FastaFile
+    from nanocaller_tpu_torch.pileup import snp_dense as K5
+    from nanocaller_tpu_torch.pileup import snp_features as sf
+    from nanocaller_tpu_torch.pileup import snp_pileup as K3
+    from nanocaller_tpu_torch.runtime import sharding
+
+    cfg = Config(bam=bam_p, ref=fasta_p, batch_size=DP_BATCH, device="cuda")
+    bam, fasta = BamReader(bam_p), FastaFile(fasta_p)
+    # the first two 500 kb chunks of chr1: a two-member decode group
+    span = min(500_000, bam.get_reference_length("chr1") // 2)
+    members = [{"chrom": "chr1", "start": 1 + k * span,
+                "end": (k + 1) * span, "ploidy": "diploid"}
+               for k in range(2)]
+    [gf] = sf.get_snp_group_payloads(bam, fasta, members)
+    gf.members = [(i, sec) for i, (_m, sec) in enumerate(gf.members)]
+    feats = sf.get_snp_chunk_features(bam, fasta, members[0])
+    batch = sf.get_snp_candidates(bam, fasta, members[0])
+    rng = np.random.default_rng(15)
+
+    class _Indels:
+        x0, x1, x2 = (rng.random((DP_INDEL_ROWS, 5, 128, 2), np.float32)
+                      for _ in range(3))
+
+        def __len__(self):
+            return DP_INDEL_ROWS
+
+    saved = sharding.inference_devices
+    dev0 = torch.device("cuda", 0)
+    out, launches = {}, {}
+    try:
+        for n in (1, 2):
+            sharding.inference_devices = lambda _d, n=n: \
+                [dev0] * n if n > 1 else None
+            snp = S.SnpCallerState.create(cfg.snp_model, device="cuda")
+            indel = I.IndelCallerState.create(cfg.indel_model, device="cuda")
+            if len(snp.replicas) != n or len(indel.replicas) != n:
+                fail("inference_devices gave %d replicas, not %d"
+                     % (len(snp.replicas), n))
+            runs = {"group": lambda: np.concatenate(
+                        S.infer_snp_group(snp, gf, cfg)),
+                    "chunk": lambda: S.infer_snp_chunk(snp, feats, cfg,
+                                                       "diploid"),
+                    "dense": lambda: S.infer_snp_batch(snp, batch, cfg,
+                                                       "diploid"),
+                    "indel": lambda: I.infer_indel_many(
+                        indel, [_Indels()], batch_size=DP_BATCH)[0]}
+            for name, fn in runs.items():
+                K3.reset_counters()
+                K5.reset_counters()
+                out[name, n] = fn()
+                launches[name, n] = (K3.SNP_PILEUP_LAUNCHES,
+                                     K5.SNP_DENSE_LAUNCHES)
+    finally:
+        sharding.inference_devices = saved
+    # the launches two replicas must make: one a (cohort, replica) with
+    # rows; a cohort of B rows reaches min(2, ceil(B / DP_BATCH)) replicas
+    reach = lambda B: min(2, -(-B // DP_BATCH))
+    rows_group = {}
+    for _mi, sec in gf.members:
+        if sec is None:
+            continue
+        nd = len(sec.deep_idx)
+        for deep, k in ((False, len(sec) - nd), (True, nd)):
+            if k:
+                rows_group[sec.ploidy, deep] = \
+                    rows_group.get((sec.ploidy, deep), 0) + k
+    nd = len(feats.deep_idx)
+    want = {"group": (sum(reach(b) for b in rows_group.values()), 0),
+            "chunk": (sum(reach(b) for b in (len(feats) - nd, nd) if b), 0),
+            "dense": (0, reach(len(batch))), "indel": (0, 0)}
+    for name in runs:
+        if not np.array_equal(out[name, 1], out[name, 2]):
+            fail("two replicas changed the %s probabilities" % name)
+        if launches[name, 2] != want[name] or (
+                name != "indel" and launches[name, 1] == want[name]):
+            fail("%s: launches (K3, K5) %s with one replica, %s with two; "
+                 "want %s with two" % (name, launches[name, 1],
+                                       launches[name, 2], want[name]))
+    return {"dp_batch": DP_BATCH,
+            "dp_rows": {"group": sum(rows_group.values()),
+                        "chunk": len(feats), "dense": len(batch),
+                        "indel": DP_INDEL_ROWS},
+            "dp_launches_k3_k5": {"%s_%dreplica" % k: v
+                                  for k, v in launches.items()},
+            "dp_bit_identical": True}
+
+
 def main():
     import torch
 
@@ -2171,16 +2546,15 @@ def main():
         print("chip_smoke: the nanocaller_tpu_torch package is not beside "
               "this script", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--cli-child"]:
+        return cli_child(json.loads(sys.argv[2]))
     sys.path.insert(0, HERE)
     from nanocaller_tpu_torch.align import nw_kernels as K
     from nanocaller_tpu_torch.io import native
     from nanocaller_tpu_torch.runtime.device import resolve_device
     import numpy as np
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    smi = _smi_line()
     t0 = time.perf_counter()
     lib = K.build()
     build_s = time.perf_counter() - t0
@@ -2206,10 +2580,11 @@ def main():
         all_counts = phase_all_slice(tmp)
         phase_a2a(tmp, fasta_p, bam_p)
         cut_fasta, cut_bam = phase_cram_all(tmp)
-        dag_counts = phase_dag(tmp)
+        dag_counts, dag_fasta, dag_bam = phase_dag(tmp)
         ccs_counts = phase_ccs(tmp, cut_fasta, cut_bam)
         a2b_counts, a2b_k3_rows, a2b_k5_rows = phase_a2b(
             tmp, fasta_p, bam_p, cut_fasta, cut_bam)
+        dist_counts = phase_dist(tmp, dag_fasta, dag_bam, cut_fasta, cut_bam)
 
     def pick(phase):
         return next(r for r in rows if r["phase"] == phase and
@@ -2233,7 +2608,8 @@ def main():
          "launches_by_path": {"indels": counts["NW_TB_LAUNCHES"],
                               "all": all_counts["NW_TB_LAUNCHES"],
                               "all_cpuN": dag_counts["NW_TB_LAUNCHES"],
-                              "all_ccs": ccs_counts["NW_TB_LAUNCHES"]},
+                              "all_ccs": ccs_counts["NW_TB_LAUNCHES"],
+                              "all_cpuN_2proc": dist_counts["NW_TB_LAUNCHES"]},
          "max_abs_err": max_err("K1_nw_tb"),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -2245,7 +2621,8 @@ def main():
          "launches_by_path": {"indels": counts["NW_WALK_LAUNCHES"],
                               "all": all_counts["NW_WALK_LAUNCHES"],
                               "all_cpuN": dag_counts["NW_WALK_LAUNCHES"],
-                              "all_ccs": ccs_counts["NW_WALK_LAUNCHES"]},
+                              "all_ccs": ccs_counts["NW_WALK_LAUNCHES"],
+                              "all_cpuN_2proc": dist_counts["NW_WALK_LAUNCHES"]},
          "max_abs_err": max_err("K2_nw_walk"),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -2257,7 +2634,8 @@ def main():
          "launches_by_path": {"indels": counts["NW_CIGAR_LAUNCHES"],
                               "all": all_counts["NW_CIGAR_LAUNCHES"],
                               "all_cpuN": dag_counts["NW_CIGAR_LAUNCHES"],
-                              "all_ccs": ccs_counts["NW_CIGAR_LAUNCHES"]},
+                              "all_ccs": ccs_counts["NW_CIGAR_LAUNCHES"],
+                              "all_cpuN_2proc": dist_counts["NW_CIGAR_LAUNCHES"]},
          "max_abs_err": max_err("K4_nw_cigar"),
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
@@ -2270,6 +2648,8 @@ def main():
                               "all": all_counts["SNP_PILEUP_LAUNCHES"],
                               "all_cpuN": dag_counts["SNP_PILEUP_LAUNCHES"],
                               "all_ccs": ccs_counts["SNP_PILEUP_LAUNCHES"],
+                              "all_cpuN_2proc":
+                                  dist_counts["SNP_PILEUP_LAUNCHES"],
                               **{"a2b_%s_%s_wire" % (path, wire):
                                  c["k3_" + wire]
                                  for path, c in a2b_counts.items()
@@ -2284,8 +2664,9 @@ def main():
          "source": "nanocaller_tpu_torch/csrc/snp_dense_pileup.cu",
          "replaces": "nanocaller_tpu/snp_caller.py:79 and :61",
          "launches": a2b_counts["snps_dense"]["k5"],
-         "launches_by_path": {"a2b_" + path: c["k5"]
-                              for path, c in a2b_counts.items()},
+         "launches_by_path": {
+             **{"a2b_" + path: c["k5"] for path, c in a2b_counts.items()},
+             "all_cpuN_2proc": dist_counts["SNP_DENSE_LAUNCHES"]},
          "max_abs_err": max_err("K5_snp_dense_pileup", k5_rows),
          "ms": k5["ms"], "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],

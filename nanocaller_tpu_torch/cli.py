@@ -3,8 +3,8 @@
 
 The JAX CLI's flags (nanocaller_tpu/cli.py, argument-compatible with the
 reference `NanoCaller` script, NanoCaller:84-158, including preset
-semantics, NanoCaller:162-171) plus `--device cuda|cpu`. What the port
-does not cover yet raises NotImplementedError (see caller.py).
+semantics, NanoCaller:162-171) plus `--device cuda|cpu`. `--watchdog`
+(not ported) raises NotImplementedError (see caller.py).
 """
 
 from __future__ import annotations
@@ -47,13 +47,17 @@ def build_parser():
                       help="Region-shard the run across N hosts; this "
                            "process handles shard --shard_index and writes "
                            "host-suffixed outputs (merge with "
-                           "tools/merge_shards.py).")
+                           "--merge_shards).")
     cfgg.add_argument("--shard_index", type=int, default=0)
     cfgg.add_argument("--merge_shards", action="store_true",
                       help="Instead of calling, merge existing host-shard "
                            "outputs for --prefix/--num_shards in --output.")
     cfgg.add_argument("--coordinator", type=str, default="",
-                      help="multi-process coordinator (not ported yet)")
+                      help="host:port of process 0 for the Gloo process "
+                           "group. With --num_processes/--process_id, one "
+                           "command per process runs its region shard on "
+                           "its own card and process 0 merges the "
+                           "outputs.")
     cfgg.add_argument("--num_processes", type=int, default=1)
     cfgg.add_argument("--process_id", type=int, default=0)
     cfgg.add_argument("--watchdog", type=int, default=0, metavar="SECONDS",
@@ -174,8 +178,7 @@ def config_from_args(argv=None):
         watchdog=args.watchdog,
         phased_bam_compression=args.phased_bam_compression,
         device=args.device)
-    if args.merge_shards:
-        raise NotImplementedError("--merge_shards is not ported yet")
+    cfg._merge_shards = args.merge_shards
     if args.preset:
         apply_preset(cfg, args.preset, explicitly_set)
     return cfg
@@ -186,6 +189,18 @@ def main(argv=None):
     cfg = config_from_args(argv)
     print("%s: Starting nanocaller-tpu-torch." % datetime.datetime.now(),
           flush=True)
+    if cfg._merge_shards:
+        from .runtime.distributed import merge_host_outputs
+
+        outputs = merge_host_outputs(cfg.output or ".", cfg.prefix,
+                                     cfg.num_shards)
+        print("merged shards:", outputs, flush=True)
+        return outputs
+    if cfg.num_processes > 1:
+        from .runtime.distributed import initialize
+
+        initialize(cfg.coordinator or None, cfg.num_processes,
+                   cfg.process_id)
     from .caller import run
 
     outputs = run(cfg)

@@ -28,6 +28,7 @@ from .io.vcf import VcfRecord, standard_indel_header, write_sorted
 from .models import (HaploidIndelModel, IndelModel, load_model,
                      torch_state_dict_from_params)
 from .pileup.indel_features import HaploidIndelBatch, IndelBatch
+from .runtime import sharding
 from .runtime.device import resolve_device
 
 
@@ -36,9 +37,20 @@ class IndelCallerState:
     model: IndelModel
     hap_model: HaploidIndelModel
     device: torch.device
+    # in-process data parallelism: [(device, model, hap_model)] of every
+    # replica, the first this state's own; one entry on a single device
+    replicas: list
+
+    @property
+    def devices(self):
+        return [dev for dev, _m, _h in self.replicas]
 
     @classmethod
-    def create(cls, indel_model_name, device="cuda"):
+    def create(cls, indel_model_name, device="cuda", devices="auto"):
+        """The indel pack plus `haploid` on `device`; "cuda" without a
+        GPU raises. `devices`: the CNN replicas' devices, as
+        SnpCallerState.create takes them; the NW kernels run on the
+        first."""
         dev = resolve_device(device)
 
         def _load(module, name):
@@ -46,28 +58,42 @@ class IndelCallerState:
             module.load_state_dict(torch_state_dict_from_params(params))
             return module.to(dev).eval()
 
-        return cls(model=_load(IndelModel(), indel_model_name),
-                   hap_model=_load(HaploidIndelModel(), "haploid"),
-                   device=dev)
+        reps = sharding.replicas(dev, devices,
+                                 _load(IndelModel(), indel_model_name),
+                                 _load(HaploidIndelModel(), "haploid"))
+        return cls(model=reps[0][1], hap_model=reps[0][2],
+                   device=reps[0][0], replicas=reps)
 
 
-def _run_stacked(model, x, batch_size, device):
+def _run_stacked(state, haploid, x, batch_size):
     """Model outputs over stacked NHWC input rows, batch_size rows per
-    forward (no padding: PyTorch runs any batch shape)."""
+    forward (no padding: PyTorch runs any batch shape), the forwards
+    split over the state's replicas (sharding.dp_rows: a replica's rows
+    are whole batch_size slices)."""
     x = np.ascontiguousarray(x, dtype=np.float32)
-    outs = []
+    parts = []  # (first row, device output)
     with torch.inference_mode():
-        for lo in range(0, len(x), batch_size):
-            xs = torch.from_numpy(x[lo : lo + batch_size]).to(device)
-            outs.append(model(xs).cpu().numpy())
-    return np.concatenate(outs) if outs else np.zeros((0, 4), np.float32)
+        for (dev, model, hap_model), rows in zip(
+                state.replicas, sharding.dp_rows(len(x), batch_size,
+                                                 state.devices)):
+            forward = hap_model if haploid else model
+            for k in range(0, len(rows), batch_size):
+                lo = int(rows[k])
+                hi = int(rows[min(k + batch_size, len(rows)) - 1]) + 1
+                parts.append((lo, forward(torch.from_numpy(x[lo:hi]).to(dev))))
+    if not parts:
+        return np.zeros((0, 4), np.float32)
+    out = np.empty((len(x),) + tuple(parts[0][1].shape[1:]), np.float32)
+    for lo, probs in parts:
+        out[lo:lo + len(probs)] = probs.cpu().numpy()
+    return out
 
 
 def infer_indel_batch(state, batch, batch_size=256):
     """(B,4) genotype-class probabilities; input rows stacked hap0/hap1/all
     (indelCaller.py:83)."""
     x = np.concatenate([batch.x0, batch.x1, batch.x2], axis=1)  # (B,15,128,2)
-    return _run_stacked(state.model, x, batch_size, state.device)
+    return _run_stacked(state, False, x, batch_size)
 
 
 def infer_indel_many(state, batches, batch_size=256):
@@ -82,7 +108,7 @@ def infer_indel_many(state, batches, batch_size=256):
         return []
     x = np.concatenate(
         [np.concatenate([b.x0, b.x1, b.x2], axis=1) for b in batches])
-    out = _run_stacked(state.model, x, batch_size, state.device)
+    out = _run_stacked(state, False, x, batch_size)
     splits = np.cumsum(lens)[:-1]
     return np.split(out, splits)
 
@@ -90,8 +116,7 @@ def infer_indel_many(state, batches, batch_size=256):
 def infer_haploid_indel_batch(state, batch, batch_size=256):
     if len(batch) == 0:
         return np.zeros((0,), np.float32)
-    return _run_stacked(state.hap_model, batch.x, batch_size,
-                        state.device)[:, 0]
+    return _run_stacked(state, True, batch.x, batch_size)[:, 0]
 
 
 def infer_haploid_indel_many(state, batches, batch_size=256):
@@ -100,7 +125,7 @@ def infer_haploid_indel_many(state, batches, batch_size=256):
     if not lens:
         return []
     x = np.concatenate([b.x for b in batches])
-    out = _run_stacked(state.hap_model, x, batch_size, state.device)[:, 0]
+    out = _run_stacked(state, True, x, batch_size)[:, 0]
     return np.split(out, np.cumsum(lens)[:-1])
 
 

@@ -38,16 +38,18 @@ from ..align import nw_kernels
 from .snp_features import BAND_SCHEDULES, CENTER, WIDTH
 
 # launches of K3 (the wrapper adds one where it launches the kernel),
-# in all and by the kind of wire ("group" or "chunk")
+# in all and by the kind of wire ("group" or "chunk"), and the rows
+# those launches built
 SNP_PILEUP_LAUNCHES = 0
+SNP_PILEUP_ROWS = 0
 BY_WIRE = {"group": 0, "chunk": 0}
 # rows of the band table a side: the most bands any schedule has
 MAX_BANDS = 7
 
 
 def reset_counters():
-    global SNP_PILEUP_LAUNCHES
-    SNP_PILEUP_LAUNCHES = 0
+    global SNP_PILEUP_LAUNCHES, SNP_PILEUP_ROWS
+    SNP_PILEUP_LAUNCHES = SNP_PILEUP_ROWS = 0
     BY_WIRE.update(group=0, chunk=0)
 
 
@@ -312,7 +314,7 @@ def snp_pileup(wire, cand_site, cand_pos, lo_c, hi_c, norm, deep_rids=None,
     (B, 4) float32 the one-hot of the candidate's ref base (all zero for
     N). Normal rows count every covering read of the centre site (the
     caller keeps them within maxcov: see snp_caller.pileup_cohorts)."""
-    global SNP_PILEUP_LAUNCHES
+    global SNP_PILEUP_LAUNCHES, SNP_PILEUP_ROWS
     B = _check_inputs(wire, cand_site, cand_pos, lo_c, hi_c, norm,
                       deep_rids, n_valid)
     if cand_site.device.type == "cpu":
@@ -337,6 +339,7 @@ def snp_pileup(wire, cand_site, cand_pos, lo_c, hi_c, norm, deep_rids=None,
     if rc != 0:
         raise RuntimeError("snp_pileup launch failed: cudaError %d" % rc)
     SNP_PILEUP_LAUNCHES += 1
+    SNP_PILEUP_ROWS += B
     BY_WIRE[wire.kind] += 1
     return out, soc, ref
 

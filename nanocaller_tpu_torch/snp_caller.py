@@ -23,6 +23,10 @@ three paths, as the JAX package's payload types choose them:
   _TABLE_CELL_CAP): kernel K5 (pileup/snp_dense.py) (infer_snp_batch).
 The three build the same x, bit for bit, for the same candidates; the
 SNP CNN (models/snp.py, torch/cuDNN) runs on it in cfg.batch_size rows.
+With several replicas (SnpCallerState.replicas, one a card) each route
+splits its rows over them in cfg.batch_size slices (sharding.dp_rows):
+the kernel and the CNN of a slice run on its replica, and the
+probabilities are those of one device, bit for bit.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from .models.registry import HAPLOID_TRAIN_COVERAGE
 from .pileup.snp_dense import snp_dense_pileup
 from .pileup.snp_features import SnpChunkFeatures, SnpGroupFeatures
 from .pileup.snp_pileup import chunk_wire, group_wire, site_depth, snp_pileup
+from .runtime import sharding
 from .runtime.chunker import group_adjacent_chunks
 from .runtime.device import resolve_device
 
@@ -64,12 +69,22 @@ class SnpCallerState:
     train_coverage: float
     hap_model: HaploidSNPModel
     device: torch.device
+    # in-process data parallelism: [(device, model, hap_model)] of every
+    # replica, the first this state's own; one entry on a single device
+    replicas: list
     hap_train_coverage: float = HAPLOID_TRAIN_COVERAGE
 
+    @property
+    def devices(self):
+        return [dev for dev, _m, _h in self.replicas]
+
     @classmethod
-    def create(cls, snp_model_name, device="cuda"):
+    def create(cls, snp_model_name, device="cuda", devices="auto"):
         """The diploid pack plus `haploid`, with the pack's `.coverage`
-        training depth; "cuda" without a GPU raises."""
+        training depth; "cuda" without a GPU raises. `devices`: the
+        replicas' devices ("auto": sharding.inference_devices, every
+        card of a bare "cuda" when there are two or more; None: one
+        device), each holding a copy of the weights."""
         dev = resolve_device(device)
 
         def _load(module, name):
@@ -79,8 +94,9 @@ class SnpCallerState:
 
         model, cov = _load(SNPModel(), snp_model_name)
         hap_model, _ = _load(HaploidSNPModel(), "haploid")
-        return cls(model=model, train_coverage=cov, hap_model=hap_model,
-                   device=dev)
+        reps = sharding.replicas(dev, devices, model, hap_model)
+        return cls(model=reps[0][1], train_coverage=cov,
+                   hap_model=reps[0][2], device=reps[0][0], replicas=reps)
 
 
 def _coverage_norm(state, feats, ploidy, cfg):
@@ -103,14 +119,15 @@ def _check_depth(depth, rows, maxcov):
         raise ValueError("a normal row is deeper than maxcov=%d" % maxcov)
 
 
-def _snp_cnn(state, ploidy, x, ref, bs):
-    """The SNP CNN over x (B, 5, 41, 5) in slices of bs rows → the (B, 4)
-    probabilities on x's device."""
+def _snp_cnn(replica, ploidy, x, ref, bs):
+    """A replica's SNP CNN over x (B, 5, 41, 5) in slices of bs rows →
+    the (B, 4) probabilities on x's device."""
+    _dev, model, hap_model = replica
     probs = []
     for lo in range(0, x.shape[0], bs):
         xs, rs = x[lo:lo + bs], ref[lo:lo + bs]
-        probs.append(state.hap_model(xs, rs) if ploidy == "haploid"
-                     else state.model(xs, rs)[0][:, :, 1])
+        probs.append(hap_model(xs, rs) if ploidy == "haploid"
+                     else model(xs, rs)[0][:, :, 1])
     return torch.cat(probs) if probs else torch.zeros(
         (0, 4), device=x.device)
 
@@ -118,14 +135,16 @@ def _snp_cnn(state, ploidy, x, ref, bs):
 def pileup_cohorts(state, gf, cfg):
     """K3's launches for one decode group, as infer_snp_group makes them.
 
-    The members' rows pack into (ploidy, deep) cohorts; the payload goes
-    to state.device once. Returns [(ploidy, deep, args, dst_mi, dst_j)] in
-    launch order, where snp_pileup(*args) builds the cohort's pileups
-    and row k of it belongs to member dst_mi[k], row dst_j[k]. Normal
-    rows count every covering read, which the payload keeps within
-    maxcov (checked here, for both devices); deep rows (depth > maxcov)
-    count their host-sampled read ids."""
-    dev = state.device
+    The members' rows pack into (ploidy, deep) cohorts, and each
+    cohort's rows split over the state's replicas (sharding.dp_rows at
+    cfg.batch_size): one launch a cohort and replica, on the replica's
+    device, to which the payload goes once. Returns [(ploidy, deep,
+    args, dst_mi, dst_j, r)] in launch order, where snp_pileup(*args)
+    builds the pileups of replica r's rows and row k of it belongs to
+    member dst_mi[k], row dst_j[k]. Normal rows count every covering
+    read, which the payload keeps within maxcov (checked here, for both
+    devices); deep rows (depth > maxcov) count their host-sampled read
+    ids."""
     depth = site_depth(gf)
     cohorts = {}  # (ploidy, deep) -> dict of row lists
     for mi, (_oi, sec) in enumerate(gf.members):
@@ -157,24 +176,29 @@ def pileup_cohorts(state, gf, cfg):
     if not cohorts:
         return []
 
-    def put(parts, dtype):
-        return torch.from_numpy(
-            np.ascontiguousarray(np.concatenate(parts), dtype)).to(dev)
-
-    wire = group_wire(gf, dev)
+    wires = {}  # replica -> the payload on its device
     out = []
     for (ploidy, deep), c in sorted(cohorts.items(),
                                     key=lambda kv: (kv[0][1], kv[0][0])):
-        rids = n_valid = None
-        if deep:
-            rids = put(c["rids"], np.int32)
-            n_valid = torch.full((rids.shape[0],), gf.maxcov,
-                                 dtype=torch.int32, device=dev)
-        args = (wire, *(put(c[k], np.int32) for k in
-                        ("cand_site", "cand_pos", "lo", "hi")),
-                put(c["norm"], np.float32), rids, n_valid)
-        out.append((ploidy, deep, args, np.concatenate(c["mi"]),
-                    np.concatenate(c["j"])))
+        c = {k: np.concatenate(v) for k, v in c.items() if v}
+        for r, rows in enumerate(sharding.dp_rows(
+                len(c["mi"]), cfg.batch_size, state.devices)):
+            if not len(rows):
+                continue
+            dev = state.replicas[r][0]
+            if r not in wires:
+                wires[r] = group_wire(gf, dev)
+            put = lambda k, dtype=np.int32: torch.from_numpy(
+                np.ascontiguousarray(c[k][rows], dtype)).to(dev)
+            rids = n_valid = None
+            if deep:
+                rids = put("rids")
+                n_valid = torch.full((len(rows),), gf.maxcov,
+                                     dtype=torch.int32, device=dev)
+            args = (wires[r], *(put(k) for k in
+                                ("cand_site", "cand_pos", "lo", "hi")),
+                    put("norm", np.float32), rids, n_valid)
+            out.append((ploidy, deep, args, c["mi"][rows], c["j"][rows], r))
     return out
 
 
@@ -194,10 +218,12 @@ def infer_snp_group(state, gf, cfg, async_mode=False):
     parts = []  # (dst_mi, dst_j, device probs)
     bs = cfg.batch_size
     with torch.inference_mode():
-        for ploidy, _deep, args, mis, js in pileup_cohorts(state, gf, cfg):
+        for ploidy, _deep, args, mis, js, r in pileup_cohorts(state, gf,
+                                                               cfg):
             # ref: the centre-ref one-hot, all zero for N as jax.nn.one_hot's
             x, _soc, ref = snp_pileup(*args)
-            parts.append((mis, js, _snp_cnn(state, ploidy, x, ref, bs)))
+            parts.append((mis, js, _snp_cnn(state.replicas[r], ploidy, x,
+                                            ref, bs)))
 
     def finish():
         for mis, js, probs in parts:
@@ -212,14 +238,15 @@ def infer_snp_group(state, gf, cfg, async_mode=False):
 
 def chunk_cohorts(state, feats, cfg, ploidy):
     """K3's launches for one chunk's payload (SnpChunkFeatures) called at
-    `ploidy`, as infer_snp_chunk makes them: the payload goes to
-    state.device once as a chunk wire, and the chunk's normal rows, then
-    its deep rows, take one launch each with their windows the whole
-    neighbour array [0, M). Returns [(deep, args, rows)] where
-    snp_pileup(*args) builds the pileups of the candidates `rows`.
-    Normal rows count every covering read (checked within maxcov, for
-    both devices); deep rows count their host-sampled read ids."""
-    dev = state.device
+    `ploidy`, as infer_snp_chunk makes them: the chunk's normal rows,
+    then its deep rows, split over the state's replicas
+    (sharding.dp_rows at cfg.batch_size), one launch each on the
+    replica's device, to which the payload goes once as a chunk wire;
+    their windows are the whole neighbour array [0, M). Returns [(deep,
+    args, rows, r)] where snp_pileup(*args) builds the pileups of the
+    candidates `rows` on replica r. Normal rows count every covering
+    read (checked within maxcov, for both devices); deep rows count
+    their host-sampled read ids."""
     B = len(feats)
     if B == 0:
         return []
@@ -228,23 +255,32 @@ def chunk_cohorts(state, feats, cfg, ploidy):
     deep_mask[feats.deep_idx] = True
     normal = np.flatnonzero(~deep_mask)
     _check_depth(site_depth(feats), feats.cand_site[normal], feats.maxcov)
-    wire = chunk_wire(feats, dev)
-    put = lambda a, dtype=np.int32: torch.from_numpy(
-        np.ascontiguousarray(a, dtype)).to(dev)
+    devices = state.devices
+    wires = {}
     out = []
-    for deep, rows in ((False, normal), (True, feats.deep_idx)):
-        n = len(rows)
-        if not n:
-            continue
-        rids = n_valid = None
-        if deep:
-            rids = put(feats.deep_rids)
-            n_valid = torch.full((n,), feats.maxcov, dtype=torch.int32,
-                                 device=dev)
-        args = (wire, put(feats.cand_site[rows]), put(feats.cand_pos32[rows]),
-                put(np.zeros(n)), put(np.full(n, wire.n_nbrs)),
-                put(norm[rows], np.float32), rids, n_valid)
-        out.append((deep, args, rows))
+    for deep, kind_rows in ((False, normal), (True, feats.deep_idx)):
+        for r, sub in enumerate(sharding.dp_rows(len(kind_rows),
+                                                 cfg.batch_size, devices)):
+            n = len(sub)
+            if not n:
+                continue
+            dev = devices[r]
+            if r not in wires:
+                wires[r] = chunk_wire(feats, dev)
+            wire = wires[r]
+            put = lambda a, dtype=np.int32: torch.from_numpy(
+                np.ascontiguousarray(a, dtype)).to(dev)
+            rows = kind_rows[sub]
+            rids = n_valid = None
+            if deep:
+                rids = put(feats.deep_rids[sub])
+                n_valid = torch.full((n,), feats.maxcov, dtype=torch.int32,
+                                     device=dev)
+            args = (wire, put(feats.cand_site[rows]),
+                    put(feats.cand_pos32[rows]), put(np.zeros(n)),
+                    put(np.full(n, wire.n_nbrs)),
+                    put(norm[rows], np.float32), rids, n_valid)
+            out.append((deep, args, rows, r))
     return out
 
 
@@ -268,32 +304,38 @@ def infer_snp_chunk(state, feats, cfg, ploidy, async_mode=False):
     current stream and the finisher does the device→host copy)."""
     parts = []
     with torch.inference_mode():
-        for _deep, args, rows in chunk_cohorts(state, feats, cfg, ploidy):
+        for _deep, args, rows, r in chunk_cohorts(state, feats, cfg, ploidy):
             x, _soc, ref = snp_pileup(*args)
-            parts.append((rows, _snp_cnn(state, ploidy, x, ref,
+            parts.append((rows, _snp_cnn(state.replicas[r], ploidy, x, ref,
                                          cfg.batch_size)))
     return _finisher(len(feats), parts, async_mode)
 
 
 def infer_snp_batch(state, batch, cfg, ploidy, async_mode=False):
-    """Run the model over one chunk's dense SnpBatch: one K5 launch over
-    its rows (codes cut to the deepest row's sampled reads, which lie
-    first in every row), the CNN in cfg.batch_size rows. Returns as
-    infer_snp_chunk does."""
+    """Run the model over one chunk's dense SnpBatch: its rows split over
+    the state's replicas (sharding.dp_rows at cfg.batch_size), one K5
+    launch a replica on its device (codes cut to the batch's deepest
+    row's sampled reads, which lie first in every row), the CNN in
+    cfg.batch_size rows. Returns as infer_snp_chunk does."""
     B = len(batch)
     parts = []
     if B:
         norm = _coverage_norm(state, batch, ploidy, cfg)
         R_b = max(1, int(batch.sampled_depth.max()))
-        dev = state.device
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        devices = state.devices
         with torch.inference_mode():
-            x, ref = snp_dense_pileup(
-                put(batch.codes[:, :R_b]), put(batch.read_mask[:, :R_b]),
-                put(batch.col_ref), put(batch.col_valid),
-                put(batch.center_ref), put(norm))
-            parts.append((np.arange(B), _snp_cnn(state, ploidy, x, ref,
-                                                 cfg.batch_size)))
+            for r, rows in enumerate(sharding.dp_rows(B, cfg.batch_size,
+                                                      devices)):
+                if not len(rows):
+                    continue
+                put = lambda a: torch.from_numpy(
+                    np.ascontiguousarray(a[rows])).to(devices[r])
+                x, ref = snp_dense_pileup(
+                    put(batch.codes[:, :R_b]), put(batch.read_mask[:, :R_b]),
+                    put(batch.col_ref), put(batch.col_valid),
+                    put(batch.center_ref), put(norm))
+                parts.append((rows, _snp_cnn(state.replicas[r], ploidy, x,
+                                             ref, cfg.batch_size)))
     return _finisher(B, parts, async_mode)
 
 

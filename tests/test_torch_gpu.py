@@ -17,7 +17,9 @@ no row, and the wrapper's refusals; a SNP decode group over the payload
 caps, sent member by member (one K3 launch a member), against its
 uncapped run;
 `--mode all --cpu 2` on cuda against cpu, with no CUDA context in a
-worker. Skips without a GPU.
+worker; two replicas on the card (bit-identical probabilities, one K3 or
+K5 launch a cohort and replica) and two `--num_processes 2` processes
+on it. Skips without a GPU.
 
 Imports neither jax nor the JAX package, so that it also runs where only
 the port is installed: `python -m pytest --noconftest tests/test_torch_gpu.py`.
@@ -291,7 +293,7 @@ def _k3_equal(args):
 def test_snp_pileup_cohorts_match_twin(snp_group, ploidy, deep):
     state, groups = snp_group
     gf = groups[ploidy]
-    launches = [a for p, d, a, _, _ in pileup_cohorts(state, gf, _Cfg())
+    launches = [a for p, d, a, _, _, _ in pileup_cohorts(state, gf, _Cfg())
                 if (p, d) == (ploidy, deep)]
     assert len(launches) == 1
     x, soc, _ = _k3_equal(launches[0])
@@ -445,9 +447,9 @@ def test_snp_pileup_on_chunk_wire(snp_chunk, maxcov):
     x = torch.zeros((B, 5, 41, 5), device="cuda")
     launches = K3.BY_WIRE["chunk"]
     cohorts = chunk_cohorts(state, feats, _Cfg(), "diploid")
-    assert [d for d, _, _ in cohorts] == ([False, True] if maxcov == 24
+    assert [d for d, _, _, _ in cohorts] == ([False, True] if maxcov == 24
                                           else [False])
-    for _deep, args, rows in cohorts:
+    for _deep, args, rows, _r in cohorts:
         assert args[0].kind == "chunk"
         x[_t(rows)] = _k3_equal(args)[0]
     assert K3.BY_WIRE["chunk"] == launches + len(cohorts)
@@ -615,3 +617,105 @@ def test_dag_cpu2_on_card(tmp_path):
         assert n > 0
     chip_smoke.compare_records(unf(outs["cuda"]["snps"]),
                                unf(outs["cpu"]["snps"]), "snp")
+
+
+class _DpCfg:
+    # a per-device batch small enough that each cohort's rows spread over
+    # both replicas
+    batch_size = 16
+    disable_coverage_normalization = False
+
+
+@pytest.mark.cuda
+def test_two_replicas_on_card(snp_group, snp_chunk):
+    """Two replicas on cuda:0 (runtime/sharding.py): the group, chunk and
+    dense routes' probabilities equal one replica's bit for bit, with one
+    K3 or K5 launch a cohort and replica; the indel CNN's too."""
+    from nanocaller_tpu_torch import indel_caller as I
+    from nanocaller_tpu_torch.snp_caller import (infer_snp_batch,
+                                                 infer_snp_chunk,
+                                                 infer_snp_group)
+
+    one, groups = snp_group
+    two = SnpCallerState.create("ONT-HG002", device="cuda",
+                                devices=["cuda:0", "cuda:0"])
+    assert len(two.replicas) == 2
+    for gf in groups.values():
+        before = K3.SNP_PILEUP_LAUNCHES
+        got = infer_snp_group(two, gf, _DpCfg())
+        assert K3.SNP_PILEUP_LAUNCHES - before == \
+            len(pileup_cohorts(two, gf, _DpCfg())) > \
+            len(pileup_cohorts(one, gf, _DpCfg()))
+        for g, w in zip(got, infer_snp_group(one, gf, _DpCfg())):
+            np.testing.assert_array_equal(g, w)
+    _state, chunks = snp_chunk
+    feats, batch = chunks[24]
+    np.testing.assert_array_equal(
+        infer_snp_chunk(two, feats, _DpCfg(), "diploid"),
+        infer_snp_chunk(one, feats, _DpCfg(), "diploid"))
+    before = K5.SNP_DENSE_LAUNCHES
+    got = infer_snp_batch(two, batch, _DpCfg(), "haploid")
+    assert K5.SNP_DENSE_LAUNCHES - before == 2
+    np.testing.assert_array_equal(
+        got, infer_snp_batch(one, batch, _DpCfg(), "haploid"))
+    x = np.random.default_rng(3).random((100, 15, 128, 2), np.float32)
+    states = [I.IndelCallerState.create("ONT-HG002", device="cuda",
+                                        devices=d)
+              for d in (None, ["cuda:0", "cuda:0"])]
+    got = [I._run_stacked(s, False, x, 16) for s in states]
+    np.testing.assert_array_equal(got[0], got[1])
+
+
+@pytest.mark.cuda
+def test_two_processes_on_card(tmp_path):
+    """`--num_processes 2` with --device cuda: two processes on this card
+    (cuda:(i mod cards)), joined by Gloo; process 0's merged VCFs hold
+    the single cuda run's records (chip_smoke's rules, contig by contig)
+    and both metrics.host00i.json its counts summed."""
+    _need_gpu()
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    import chip_smoke
+    from nanocaller_tpu_torch import cli
+    from nanocaller_tpu_torch.sim import write_contigs_fixture
+
+    fa, bam_p, _, _ = write_contigs_fixture(
+        str(tmp_path), [("chr1", 10_000, 41, 300, 1500, False),
+                        ("chrX", 9_500, 42, 300, 1500, True)],
+        depth=30, read_len=3000)
+
+    def argv(out, *extra):
+        return ["--bam", bam_p, "--ref", fa, "--mode", "all", "--cpu", "2",
+                "--haploid_X", "--device", "cuda", "--output",
+                str(tmp_path / out), "--prefix", "p", "--sample", "S",
+                "--suppress_progress_bar", *extra]
+
+    one = cli.main(argv("one"))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    coord = "localhost:%d" % s.getsockname()[1]
+    s.close()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "nanocaller_tpu_torch.cli",
+         *argv("procs", "--coordinator", coord, "--num_processes", "2",
+               "--process_id", str(i))], env=env, cwd=repo,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for i in range(2)]
+    for p in procs:
+        out, _ = p.communicate(timeout=300)
+        assert p.returncode == 0, out.decode(errors="replace")[-3000:]
+    for key, kind in (("snps", "snp"), ("phased_snps", "snp"),
+                      ("indels", "indel"), ("final", "any")):
+        got = one[key].replace(str(tmp_path / "one"), str(tmp_path / "procs"))
+        n, _ = chip_smoke.compare_records(got, one[key], kind,
+                                          by_contig=True)
+        assert n > 0
+    with open(tmp_path / "one" / "metrics.json") as fh:
+        counts = json.load(fh)["counts"]
+    for i in range(2):
+        with open(tmp_path / "procs" / ("metrics.host%03d.json" % i)) as fh:
+            assert json.load(fh)["global_counts"] == counts

@@ -36,7 +36,9 @@ assert {"nanocaller_tpu_torch.phase.mec", "nanocaller_tpu_torch.phase.wmec",
         "nanocaller_tpu_torch.phase.wmec_oracle",
         "nanocaller_tpu_torch.io.native", "nanocaller_tpu_torch.io.cram",
         "nanocaller_tpu_torch.io.rans", "nanocaller_tpu_torch.runtime.workers",
-        "nanocaller_tpu_torch.runtime.scheduler"} <= set(mods), mods
+        "nanocaller_tpu_torch.runtime.scheduler",
+        "nanocaller_tpu_torch.runtime.distributed",
+        "nanocaller_tpu_torch.runtime.sharding"} <= set(mods), mods
 # the native library builds from the port's own source and loads
 from nanocaller_tpu_torch.io import native
 assert native.get_lib() is not None

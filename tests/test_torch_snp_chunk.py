@@ -195,7 +195,8 @@ def _chunk_x(state, feats, norm, ploidy="diploid"):
     B = len(feats)
     x = torch.zeros((B, 5, 41, 5))
     soc = torch.zeros((B, 41), dtype=torch.int32)
-    for _deep, args, rows in P.chunk_cohorts(state, feats, Cfg(), ploidy):
+    for _deep, args, rows, _r in P.chunk_cohorts(state, feats, Cfg(),
+                                                  ploidy):
         args = (*args[:5], torch.from_numpy(norm[rows]), *args[6:])
         xs, ss, _ = K3.snp_pileup(*args)
         x[rows], soc[rows] = xs, ss
@@ -287,7 +288,8 @@ def test_x_identical_across_routes(snp_fixture, states, maxcov):
     assert (len(feats.deep_idx) > B // 2) == (maxcov == 24)
     x_group = torch.zeros((B, 5, 41, 5))
     gf.members = [(0, sec)]
-    for _p, _deep, args, _mi, js in P.pileup_cohorts(state, gf, Cfg()):
+    for _p, _deep, args, _mi, js, _r in P.pileup_cohorts(state, gf,
+                                                          Cfg()):
         x_group[js] = K3.snp_pileup(*args)[0]
     norm = P._coverage_norm(state, feats, "diploid", Cfg())
     x_chunk, _ = _chunk_x(state, feats, norm)
