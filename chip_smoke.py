@@ -144,7 +144,30 @@ Phases, each printing one JSON line per case:
    (sharding.inference_devices monkeypatched to [cuda:0, cuda:0], a
    per-device batch of DP_BATCH rows): the SNP group, chunk and dense
    routes' and the indel CNN's probabilities equal to one replica's
-   bit for bit, K3 and K5 launched once a cohort and replica.
+   bit for bit, K3 and K5 launched once a cohort and replica;
+16. training and the entry module (phase_train) on a 200 kb contig of
+   phase 9's densities written by sim.write_train_fixture (untagged and
+   haplotagged BAMs, the truth VCF of the planted variants): (a) the
+   indel training examples on cuda (the launch counters reset just
+   before and read just after: K1, K2 and K4, which must launch, by
+   bucket), and on the first TRAIN_CHECK_LEN bp cuda's equal to cpu's
+   in x, labels and positions; the SNP training examples; (b) one SNP
+   step (B = 128) and one indel step (B = 64) from the same flax-like
+   init and batch, cuda against cpu (loss within 2e-5, every gradient
+   within rtol 1e-4 / atol 1e-6) and two cuda steps bit-identical, then
+   each step's time by CUDA events over STEP_REPS steps (the SNP step
+   also at B = 1024) and, under torch.profiler, the device's busy time
+   and idle share a step; (c) three epochs of each trainer on cuda (the
+   loss must fall; an epoch's wall and the share of it that builds the
+   batches on the host), each last checkpoint through load_model into a
+   forward, and the SNP training CLI (`python -m
+   nanocaller_tpu_torch.train.train_snp`, with --train_coverage) end to
+   end; (d) the sharded SNP step at world size 1 on NCCL, bit-identical
+   to the unsharded step; (e) entry()'s forward at B = 1024 (K3 on the
+   chunk wire, counter reset just before and read just after) against
+   entry(device="cpu") within 2e-5, timed, and dryrun_multichip(1) (the
+   sharded step, the sharded inference, the real --mode all --cpu 2
+   pipeline, whose VCFs must carry calls).
 
 Then one JSON line with every kernel's launches (on the main path's
 --mode all --cpu N run; each path's own under launches_by_path), error
@@ -289,6 +312,20 @@ DIST_VCFS = (("unfiltered.snps", "snp"), ("snps", "snp"),
 # each cohort's rows over two replicas, and the indel CNN's random rows
 DP_BATCH = 256
 DP_INDEL_ROWS = 1000
+# phase 16: the training fixture (phase 9's densities on a contig cut to
+# keep example generation near 20 s on the host), the training CLIs'
+# default batch sizes, the trainers' epochs and the timed steps
+TRAIN_LEN = 200_000
+TRAIN_SEED = 1616
+# the indel examples' cuda run against the plain twins on the cpu, on
+# the contig's first 50 kb (the twins take ~0.3 s a kb on the card's host)
+TRAIN_CHECK_LEN = 50_000
+TRAIN_B = {"snp": 128, "indel": 64}
+TRAIN_B_LARGE = 1024
+TRAIN_EPOCHS = 3
+STEP_REPS = 20
+ENTRY_REPS = 10
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 
 
 def emit(obj):
@@ -2535,6 +2572,346 @@ def phase_dp(fasta_p, bam_p):
             "dp_bit_identical": True}
 
 
+def init_state(kind, seed):
+    """The kind's model ("snp" or "indel") initialised as flax's defaults
+    from `seed` (models.weights.init_params), as {name: numpy array}."""
+    import torch
+    from nanocaller_tpu_torch.models import IndelModel, SNPModel, init_params
+
+    m = init_params((SNPModel if kind == "snp" else IndelModel)(),
+                    torch.Generator().manual_seed(seed))
+    return {k: v.numpy() for k, v in m.state_dict().items()}
+
+
+def train_step_for(kind, state, device):
+    """(model, step) of the kind's train step (snp_train.make_train_step
+    or indel_train.make_indel_train_step, Adam at 1e-3) from state on
+    device (resolve_device: on cuda TF32 off and deterministic cuDNN, as
+    the trainers run)."""
+    import torch
+    from nanocaller_tpu_torch.models import IndelModel, SNPModel
+    from nanocaller_tpu_torch.runtime.device import resolve_device
+    from nanocaller_tpu_torch.train.indel_train import make_indel_train_step
+    from nanocaller_tpu_torch.train.snp_train import make_train_step
+
+    model = (SNPModel if kind == "snp" else IndelModel)()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    model.to(resolve_device(device))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    make = make_train_step if kind == "snp" else make_indel_train_step
+    return model, make(model, opt)
+
+
+def one_step(kind, state, batch, device):
+    """One train step of the kind's model from state on a numpy batch:
+    (loss, gradients, weights after the update), as floats and
+    {name: numpy array}."""
+    from nanocaller_tpu_torch.train.snp_train import to_device
+
+    model, step = train_step_for(kind, state, device)
+    loss = float(step(to_device(batch, device)))
+    return (loss, {n: p.grad.cpu().numpy() for n, p in
+                   model.named_parameters()},
+            {n: p.detach().cpu().numpy() for n, p in
+             model.named_parameters()})
+
+
+def steps_differ(a, b, what):
+    """None when two one_step results agree within the step tolerances
+    (loss 2e-5, gradients rtol 1e-4 / atol 1e-6), else what differs."""
+    import numpy as np
+
+    if abs(a[0] - b[0]) > PARITY_ATOL:
+        return "%s: loss %r vs %r" % (what, a[0], b[0])
+    for n, g in a[1].items():
+        if not np.allclose(g, b[1][n], rtol=GRAD_RTOL, atol=GRAD_ATOL):
+            return "%s: gradient of %s, max |diff| %g" % (
+                what, n, float(np.abs(g - b[1][n]).max()))
+    return None
+
+
+def steps_equal(a, b):
+    """Two one_step results bit for bit: loss, gradients and weights."""
+    import numpy as np
+
+    return a[0] == b[0] and all(
+        np.array_equal(a[k][n], b[k][n]) for k in (1, 2) for n in a[1])
+
+
+def step_ms(kind, state, batch, reps=STEP_REPS):
+    """Mean ms of one train step on the card at the batch's size, by CUDA
+    events around `reps` steps after one warm-up step. No spin before:
+    a step this small is launch-bound, and the host's time between its
+    launches is part of what it costs."""
+    import torch
+    from nanocaller_tpu_torch.train.snp_train import to_device
+
+    _model, step = train_step_for(kind, state, "cuda")
+    b = to_device(batch, "cuda")
+    step(b)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        step(b)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profile_steps(kind, state, batch, reps=STEP_REPS):
+    """`reps` train steps on the card (after a warm-up) under
+    torch.profiler: a step's wall (the profiler's own cost included),
+    the device's busy time a step, its idle share of the wall and its
+    kernels and copies a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from nanocaller_tpu_torch.train.snp_train import to_device
+
+    _model, step = train_step_for(kind, state, "cuda")
+    b = to_device(batch, "cuda")
+    step(b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    ev = [e for e in prof.key_averages()
+          if e.device_type == cuda and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in ev) / 1e6
+    return {"model": kind, "B": len(batch["x"]),
+            "profiled_wall_ms_a_step": wall / reps * 1e3,
+            "device_busy_ms_a_step": busy / reps * 1e3,
+            "device_idle_share": 1 - busy / wall if ev else None,
+            "device_events_a_step": sum(e.count for e in ev) / reps}
+
+
+def train_batches(snp_ex, x, labels):
+    """Phase 16's step batches: the SNP examples' first batch of each
+    size (batches_from_examples, rng 0) and the first indel examples."""
+    import numpy as np
+    from nanocaller_tpu_torch.train.data import batches_from_examples
+
+    first = lambda B: next(batches_from_examples(
+        snp_ex, B, np.random.default_rng(0)))
+    B = TRAIN_B["indel"]
+    return {"snp": first(TRAIN_B["snp"]), "snp_large": first(TRAIN_B_LARGE),
+            "indel": {"x": x[:B], "label": np.eye(4, dtype=np.float32)[
+                labels[:B]]}}
+
+
+def phase_train(tmp):
+    """Phase 16: training and the entry module on the card (see the
+    module docstring). Returns the counters of the indel training
+    features' cuda run and of entry()'s forward."""
+    import numpy as np
+    import torch
+    from nanocaller_tpu_torch import entry as E
+    from nanocaller_tpu_torch.align import nw_kernels as K
+    from nanocaller_tpu_torch.io.bam import BamReader
+    from nanocaller_tpu_torch.io.fasta import FastaFile
+    from nanocaller_tpu_torch.io.vcf import VcfReader
+    from nanocaller_tpu_torch.models import (IndelModel, SNPModel,
+                                             load_model,
+                                             torch_state_dict_from_params)
+    from nanocaller_tpu_torch.pileup import snp_pileup as K3
+    from nanocaller_tpu_torch.runtime.sharding import shard_train_step_demo
+    from nanocaller_tpu_torch.sim import write_train_fixture
+    from nanocaller_tpu_torch.train.data import (
+        batches_from_examples, generate_snp_training_examples, truth_snps)
+    from nanocaller_tpu_torch.train.indel_data import (
+        generate_indel_training_examples, truth_indels)
+    from nanocaller_tpu_torch.train.indel_train import train_indel_model
+    from nanocaller_tpu_torch.train.snp_train import train_snp_model
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "train")
+    os.makedirs(d)
+    fasta_p, bam_p, tagged_p, vcf_p, snps, indels = write_train_fixture(
+        d, TRAIN_LEN, TRAIN_SEED)
+    chunk = {"chrom": "chr_t", "start": 1, "end": TRAIN_LEN}
+    walls = {}
+
+    # (a) the indel training features: K1, K2 and K4 on the card
+    truth_i = truth_indels(VcfReader(vcf_p), "chr_t", 1, TRAIN_LEN)
+
+    def indel_examples(region, dev):
+        t0 = time.perf_counter()
+        out = generate_indel_training_examples(
+            BamReader(tagged_p), FastaFile(fasta_p), truth_i, region,
+            device=dev)
+        return out, time.perf_counter() - t0
+
+    K.reset_counters()
+    (x, labels, _pos), walls["indel_examples_cuda_s"] = indel_examples(
+        chunk, "cuda")
+    counts = nw_counters(K)
+    if counts["NW_TB_LAUNCHES"] == 0:
+        fail("the indel training features launched no K1")
+    check = dict(chunk, end=TRAIN_CHECK_LEN)
+    feats = {dev: indel_examples(check, dev)[0] for dev in ("cuda", "cpu")}
+    for name, a, b in zip(("x", "labels", "pos"), feats["cuda"],
+                          feats["cpu"]):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            fail("indel training %s differ between cuda and cpu" % name)
+    emit({"phase": "train_indel_features", "examples": len(x),
+          "variant_labelled": int((labels > 0).sum()),
+          "truth_indels": len(truth_i), "cuda_s":
+          walls["indel_examples_cuda_s"], "cuda_equals_cpu_on":
+          "chr_t:1-%d (%d examples)" % (TRAIN_CHECK_LEN,
+                                        len(feats["cpu"][0])), **counts})
+
+    truth_s = truth_snps(VcfReader(vcf_p), "chr_t", 1, TRAIN_LEN)
+    t0 = time.perf_counter()
+    snp_ex = generate_snp_training_examples(
+        BamReader(bam_p), FastaFile(fasta_p), truth_s, chunk)
+    walls["snp_examples_s"] = time.perf_counter() - t0
+    emit({"phase": "train_snp_examples", "examples": len(snp_ex["gt"]),
+          "truth_snps": len(truth_s), "wall_s": walls["snp_examples_s"]})
+
+    # (b) one step of each model, cuda against cpu, and twice on cuda
+    batches = train_batches(snp_ex, x, labels)
+    states = {"snp": init_state("snp", TRAIN_SEED),
+              "indel": init_state("indel", TRAIN_SEED)}
+    steps = {}
+    for kind in ("snp", "indel"):
+        b = batches[kind]
+        cpu = one_step(kind, states[kind], b, "cpu")
+        cuda = one_step(kind, states[kind], b, "cuda")
+        again = one_step(kind, states[kind], b, "cuda")
+        bad = steps_differ(cuda, cpu, "%s step cuda vs cpu" % kind)
+        if bad:
+            fail(bad)
+        if not steps_equal(cuda, again):
+            fail("two cuda %s steps differ" % kind)
+        steps[kind] = cuda
+        emit({"phase": "train_step", "model": kind, "B": len(b["x"]),
+              "loss_cuda": cuda[0], "loss_cpu": cpu[0],
+              "loss_abs_diff": abs(cuda[0] - cpu[0]),
+              "max_grad_abs_diff": max(
+                  float(np.abs(g - cpu[1][n]).max())
+                  for n, g in cuda[1].items()),
+              "cuda_runs_bit_identical": True})
+    times = {"snp_step_ms_B%d" % TRAIN_B["snp"]: step_ms(
+                 "snp", states["snp"], batches["snp"]),
+             "snp_step_ms_B%d" % TRAIN_B_LARGE: step_ms(
+                 "snp", states["snp"], batches["snp_large"]),
+             "indel_step_ms_B%d" % TRAIN_B["indel"]: step_ms(
+                 "indel", states["indel"], batches["indel"])}
+    for kind in ("snp", "indel"):
+        emit({"phase": "train_step_profile",
+              **profile_steps(kind, states[kind], batches[kind])})
+
+    # (c) a few epochs of each trainer on the card, then their last
+    # checkpoints through load_model into a forward
+    marks = []
+    t0 = time.perf_counter()
+    _params, hist = train_snp_model(
+        snp_ex, snp_ex, os.path.join(d, "snp_ckpt"), epochs=TRAIN_EPOCHS,
+        batch_size=TRAIN_B["snp"], seed=TRAIN_SEED, device="cuda",
+        log=lambda *a: marks.append(time.perf_counter()))
+    epoch_s = np.diff([t0] + marks).tolist()
+    t1 = time.perf_counter()
+    n_batches = sum(1 for _ in batches_from_examples(
+        snp_ex, TRAIN_B["snp"], np.random.default_rng(0)))
+    host_s = time.perf_counter() - t1
+    _iparams, ihist = train_indel_model(
+        x, labels, os.path.join(d, "indel_ckpt"), epochs=TRAIN_EPOCHS,
+        batch_size=TRAIN_B["indel"], seed=TRAIN_SEED, device="cuda",
+        log=lambda *a: None)
+    for kind, h in (("snp", hist), ("indel", ihist)):
+        if not h[-1]["loss"] < h[0]["loss"]:
+            fail("the %s loss did not fall: %s"
+                 % (kind, [e["loss"] for e in h]))
+    with torch.no_grad():
+        p, _ = load_model("snp", hist[-1]["ckpt"])
+        m = SNPModel()
+        m.load_state_dict(torch_state_dict_from_params(p))
+        b = batches["snp"]
+        probs, _gt = m.cuda()(torch.from_numpy(b["x"]).cuda(),
+                              torch.from_numpy(b["ref"]).cuda())
+        p, _ = load_model("indel", ihist[-1]["ckpt"])
+        m = IndelModel()
+        m.load_state_dict(torch_state_dict_from_params(p))
+        iprobs = m.cuda()(torch.from_numpy(batches["indel"]["x"]).cuda())
+    if not (torch.isfinite(probs).all() and torch.isfinite(iprobs).all()):
+        fail("a trained checkpoint's forward is not finite")
+    cli_out = os.path.join(d, "cli")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "nanocaller_tpu_torch.train.train_snp",
+         "--bam", bam_p, "--ref", fasta_p, "--truth_vcf", vcf_p,
+         "--regions", "chr_t:1-%d" % TRAIN_LEN, "--output", cli_out,
+         "--epochs", "2", "--chunk_size", "100000", "--val_every", "2",
+         "--train_coverage", "30", "--device", "cuda"],
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+        capture_output=True, text=True, timeout=600)
+    walls["snp_cli_s"] = time.perf_counter() - t0
+    ckpt = os.path.join(cli_out, "snp_model-2.npz")
+    if res.returncode != 0 or not os.path.exists(ckpt) \
+            or load_model("snp", ckpt)[1] != 30.0:
+        fail("the SNP training CLI failed (rc %d): %s"
+             % (res.returncode, (res.stdout + res.stderr)[-3000:]))
+    emit({"phase": "train_epochs",
+          "snp_loss": [e["loss"] for e in hist],
+          "snp_val_acc": [e["val_acc"] for e in hist],
+          "indel_loss": [e["loss"] for e in ihist],
+          "snp_epoch_s": epoch_s, "snp_batches_an_epoch": n_batches,
+          "snp_batch_building_s": host_s,
+          "snp_host_share_last_epoch": host_s / epoch_s[-1],
+          "snp_cli_s": walls["snp_cli_s"], "checkpoints_load": True})
+
+    # (d) the sharded step at world size 1 on NCCL, against the unsharded
+    t0 = time.perf_counter()
+    out = shard_train_step_demo(1, device="cuda", state_dict=states["snp"],
+                                batch=batches["snp"])
+    walls["nccl_step_s"] = time.perf_counter() - t0
+    if not steps_equal((out["loss"], out["grads"], out["params"]),
+                       steps["snp"]):
+        fail("the NCCL world-size-1 step differs from the unsharded step")
+    emit({"phase": "train_sharded_nccl", "world": 1,
+          "mesh": out["mesh"].shape, "loss": out["loss"],
+          "bit_identical_to_unsharded": True,
+          "wall_s": walls["nccl_step_s"]})
+
+    # (e) entry()'s forward on the chunk wire, and dryrun_multichip(1)
+    fn, args = E.entry(device="cuda")
+    K3.reset_counters()
+    got = fn(*args)
+    entry_counts = {"SNP_PILEUP_LAUNCHES": K3.SNP_PILEUP_LAUNCHES,
+                    "chunk_wire": K3.BY_WIRE["chunk"]}
+    if entry_counts["chunk_wire"] == 0:
+        fail("entry() launched no K3 on a chunk wire")
+    cpu_fn, cpu_args = E.entry(device="cpu")
+    want = cpu_fn(*cpu_args)
+    err = float(np.abs(got - want).max())
+    if got.shape != (len(args[0]), 4) or not np.isfinite(got).all() \
+            or err > PARITY_ATOL:
+        fail("entry() on cuda against cpu: shape %s, max |diff| %g"
+             % (got.shape, err))
+    t0 = time.perf_counter()
+    for _ in range(ENTRY_REPS):
+        fn(*args)
+    entry_ms = (time.perf_counter() - t0) / ENTRY_REPS * 1e3
+    t0 = time.perf_counter()
+    calls = E.dryrun_multichip(1, device="cuda")
+    walls["dryrun_multichip_s"] = time.perf_counter() - t0
+    emit({"phase": "entry", "B": len(args[0]), "max_abs_err_vs_cpu": err,
+          "forward_ms": entry_ms, **entry_counts,
+          "dryrun_calls": calls, "dryrun_s": walls["dryrun_multichip_s"]})
+    emit({"phase": "train_summary", "nvidia_smi": _smi_line(), **times,
+          **walls, "snp_epoch_s": epoch_s,
+          "snp_host_share_last_epoch": host_s / epoch_s[-1],
+          "entry_forward_ms": entry_ms,
+          "phase_s": time.perf_counter() - t_phase})
+    return counts, entry_counts
+
+
 def main():
     import torch
 
@@ -2585,6 +2962,7 @@ def main():
         a2b_counts, a2b_k3_rows, a2b_k5_rows = phase_a2b(
             tmp, fasta_p, bam_p, cut_fasta, cut_bam)
         dist_counts = phase_dist(tmp, dag_fasta, dag_bam, cut_fasta, cut_bam)
+        train_counts, entry_counts = phase_train(tmp)
 
     def pick(phase):
         return next(r for r in rows if r["phase"] == phase and
@@ -2609,7 +2987,9 @@ def main():
                               "all": all_counts["NW_TB_LAUNCHES"],
                               "all_cpuN": dag_counts["NW_TB_LAUNCHES"],
                               "all_ccs": ccs_counts["NW_TB_LAUNCHES"],
-                              "all_cpuN_2proc": dist_counts["NW_TB_LAUNCHES"]},
+                              "all_cpuN_2proc": dist_counts["NW_TB_LAUNCHES"],
+                              "train_indel_features":
+                                  train_counts["NW_TB_LAUNCHES"]},
          "max_abs_err": max_err("K1_nw_tb"),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -2622,7 +3002,9 @@ def main():
                               "all": all_counts["NW_WALK_LAUNCHES"],
                               "all_cpuN": dag_counts["NW_WALK_LAUNCHES"],
                               "all_ccs": ccs_counts["NW_WALK_LAUNCHES"],
-                              "all_cpuN_2proc": dist_counts["NW_WALK_LAUNCHES"]},
+                              "all_cpuN_2proc": dist_counts["NW_WALK_LAUNCHES"],
+                              "train_indel_features":
+                                  train_counts["NW_WALK_LAUNCHES"]},
          "max_abs_err": max_err("K2_nw_walk"),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -2635,7 +3017,9 @@ def main():
                               "all": all_counts["NW_CIGAR_LAUNCHES"],
                               "all_cpuN": dag_counts["NW_CIGAR_LAUNCHES"],
                               "all_ccs": ccs_counts["NW_CIGAR_LAUNCHES"],
-                              "all_cpuN_2proc": dist_counts["NW_CIGAR_LAUNCHES"]},
+                              "all_cpuN_2proc": dist_counts["NW_CIGAR_LAUNCHES"],
+                              "train_indel_features":
+                                  train_counts["NW_CIGAR_LAUNCHES"]},
          "max_abs_err": max_err("K4_nw_cigar"),
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
@@ -2650,6 +3034,7 @@ def main():
                               "all_ccs": ccs_counts["SNP_PILEUP_LAUNCHES"],
                               "all_cpuN_2proc":
                                   dist_counts["SNP_PILEUP_LAUNCHES"],
+                              "entry": entry_counts["SNP_PILEUP_LAUNCHES"],
                               **{"a2b_%s_%s_wire" % (path, wire):
                                  c["k3_" + wire]
                                  for path, c in a2b_counts.items()

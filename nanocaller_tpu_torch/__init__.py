@@ -8,6 +8,10 @@ device="cpu". It runs `--mode snps|indels|all` at `--cpu 1` and
 group pileup as hand-written CUDA kernels (csrc/). Under `--cpu N` the
 host work runs in feature workers that never import torch
 (runtime/workers.py); the device has one owner, the main process.
+It trains both models (train/, with the training CLIs
+`python -m nanocaller_tpu_torch.train.train_snp|train_indel`), runs the
+SNP train step sharded over processes (runtime/sharding.py) and has the
+JAX package's entry/dryrun module (entry.py).
 """
 
 __version__ = "0.1.0"

@@ -400,8 +400,9 @@ def haplotag_native(bam_reader, out_path, contig, start, end, tags, level=6,
     """Write the haplotagged-BAM artifact in one C++ pass (stream region
     records, splice HP/PS tags, BGZF-write at deflate `level` + BAI).
     tags: {qname: (hp, ps)}. threads: deflate pool size (0 = auto).
-    The C++ pass releases the GIL. Raises ValueError for a non-BAM input
-    or an unknown contig and RuntimeError when the write fails."""
+    The C++ pass releases the GIL. Raises ValueError for a non-BAM input,
+    an unknown contig or a corrupt input (a BGZF block that fails to
+    load, a bad record size) and RuntimeError when the write fails."""
     lib = get_lib()
     if getattr(bam_reader, "format", None) != "BAM":
         raise ValueError("haplotag_native reads a BAM, not %s"
@@ -441,6 +442,9 @@ def haplotag_native(bam_reader, out_path, contig, start, end, tags, level=6,
         len(bam_reader.references), qcat, _p(off, ctypes.c_int64),
         _p(hp, ctypes.c_int8), _p(ps, ctypes.c_int64), n_tags, level,
         threads)
+    if rc == 2:
+        raise ValueError("native haplotag of %s failed: corrupt BGZF block "
+                         "or alignment record" % bam_reader.path)
     if rc != 0:
         raise RuntimeError("native haplotag of %s into %s failed (rc=%d)"
                            % (bam_reader.path, out_path, rc))

@@ -94,6 +94,11 @@ class BgzfFile {
 #endif
   }
   bool ok() const { return fp_ != nullptr; }
+  // true once a block failed to load for any reason but a clean EOF (a
+  // bad header or size, a short block, a deflate or CRC failure) or a
+  // virtual offset pointed past its block: callers raise on it instead
+  // of ending as if at EOF
+  bool corrupt() const { return corrupt_; }
 
   // seek to virtual offset
   bool vseek(uint64_t voff) {
@@ -102,7 +107,7 @@ class BgzfFile {
     if (coff != block_coff_ || !block_valid_) {
       if (!load_block(coff)) return false;
     }
-    if (within > block_.size()) return false;
+    if (within > block_.size()) return bad();
     within_ = within;
     return true;
   }
@@ -136,19 +141,24 @@ class BgzfFile {
   }
 
  private:
+  bool bad() {
+    corrupt_ = true;
+    return false;
+  }
+
   bool load_block(uint64_t coff) {
     block_valid_ = false;
-    if (fseeko(fp_, coff, SEEK_SET) != 0) return false;
+    if (fseeko(fp_, coff, SEEK_SET) != 0) return bad();
     uint8_t header[18];
     size_t got = fread(header, 1, 18, fp_);
     if (got == 0) return false;  // EOF
-    if (got < 18 || header[0] != 0x1f || header[1] != 0x8b) return false;
+    if (got < 18 || header[0] != 0x1f || header[1] != 0x8b) return bad();
     uint16_t xlen = header[10] | (header[11] << 8);
     std::vector<uint8_t>& extra = extra_;  // reused across blocks
     extra.resize(xlen);
     memcpy(extra.data(), header + 12, 6);
     if (xlen > 6 && fread(extra.data() + 6, 1, xlen - 6, fp_) != size_t(xlen - 6))
-      return false;
+      return bad();
     int bsize = -1;
     for (size_t i = 0; i + 4 <= extra.size();) {
       uint8_t si1 = extra[i], si2 = extra[i + 1];
@@ -159,13 +169,14 @@ class BgzfFile {
       }
       i += 4 + slen;
     }
-    if (bsize < 0) return false;
+    if (bsize < 0) return bad();
     int cdata_len = bsize - xlen - 20;
+    if (cdata_len < 0) return bad();
     std::vector<uint8_t>& cdata = cdata_;  // reused across blocks
     cdata.resize(cdata_len);
-    if (fread(cdata.data(), 1, cdata_len, fp_) != size_t(cdata_len)) return false;
+    if (fread(cdata.data(), 1, cdata_len, fp_) != size_t(cdata_len)) return bad();
     uint8_t footer[8];
-    if (fread(footer, 1, 8, fp_) != 8) return false;
+    if (fread(footer, 1, 8, fp_) != 8) return bad();
     uint32_t isize = footer[4] | (footer[5] << 8) | (footer[6] << 16) |
                      (uint32_t(footer[7]) << 24);
     uint32_t want_crc = footer[0] | (footer[1] << 8) | (footer[2] << 16) |
@@ -179,9 +190,9 @@ class BgzfFile {
                                         block_.data(), isize, &actual) !=
               LIBDEFLATE_SUCCESS ||
           actual != isize)
-        return false;
+        return bad();
       if (libdeflate_crc32(0, block_.data(), isize) != want_crc)
-        return false;  // corruption that still inflated cleanly
+        return bad();  // corruption that still inflated cleanly
 #else
       z_stream zs{};
       inflateInit2(&zs, -15);
@@ -191,8 +202,8 @@ class BgzfFile {
       zs.avail_out = isize;
       int rc = inflate(&zs, Z_FINISH);
       inflateEnd(&zs);
-      if (rc != Z_STREAM_END) return false;
-      if (crc32(0, block_.data(), isize) != want_crc) return false;
+      if (rc != Z_STREAM_END) return bad();
+      if (crc32(0, block_.data(), isize) != want_crc) return bad();
 #endif
     }
     block_coff_ = coff;
@@ -212,6 +223,7 @@ class BgzfFile {
   uint64_t next_coff_ = 0;
   size_t within_ = 0;
   bool block_valid_ = false;
+  bool corrupt_ = false;
 };
 
 int64_t tag_to_int(const uint8_t* p, char typ) {
@@ -515,16 +527,28 @@ Window* decode_impl(const char* path, int32_t rid, int64_t start, int64_t end,
   std::vector<uint8_t> rec;
   for (int c = 0; c < n_chunks; c++) {
     uint64_t cbeg = chunks[2 * c], cend = chunks[2 * c + 1];
-    if (!f.vseek(cbeg)) continue;
+    if (!f.vseek(cbeg)) {
+      // a chunk that starts past the file's end holds no records; a
+      // block that fails to load is corruption, never a quiet skip
+      if (f.corrupt()) {
+        w->error = "corrupt BGZF block";
+        goto done;
+      }
+      continue;
+    }
     while (true) {
       if (cend != 0 && f.vtell() >= cend) break;
       int32_t block_size;
       if (!f.read(&block_size, 4)) {
         // EOF at a record boundary is only legitimate on an unindexed
         // tail scan; inside an indexed chunk it means the file is
-        // truncated — flag it so Python raises instead of silently
+        // truncated, and a block that fails to load is corrupt on any
+        // scan — flag both so Python raises instead of silently
         // returning a partial pileup
-        if (cend != 0) w->error = "truncated BAM (EOF inside index chunk)";
+        if (f.corrupt())
+          w->error = "corrupt BGZF block";
+        else if (cend != 0)
+          w->error = "truncated BAM (EOF inside index chunk)";
         goto done;
       }
       if (block_size <= 0 || block_size > (1 << 27)) {
@@ -2777,7 +2801,9 @@ void put_u64(std::vector<uint8_t>* v, uint64_t x) {
 
 extern "C" {
 
-// Returns 0 on success. hdr: raw uncompressed BAM header bytes
+// Returns 0 on success, 2 when the input is corrupt (a BGZF block that
+// fails to load, a bad record size, a record cut short) and 1 when the
+// output cannot be written. hdr: raw uncompressed BAM header bytes
 // ("BAM\1"…refs). Tags: n_tags qnames (concatenated, offsets) with hp/ps
 // values; existing HP/PS tags on a matched read are removed and replaced
 // with HP:c and PS:{c,s,i} encodings matching io/bam._encode_tag.
@@ -2822,14 +2848,21 @@ int32_t ncio_haplotag(const char* in_path, const char* out_path,
   bool done = false;
   for (int c = 0; c < n_chunks && !done; c++) {
     uint64_t cbeg = chunks[2 * c], cend = chunks[2 * c + 1];
-    if (!in.vseek(cbeg)) continue;
+    if (!in.vseek(cbeg)) {
+      if (in.corrupt()) return 2;
+      continue;
+    }
     while (true) {
       if (cend != 0 && in.vtell() >= cend) break;
       int32_t bs;
-      if (!in.read(&bs, 4)) { done = true; break; }
-      if (bs <= 0 || bs > (1 << 27)) { done = true; break; }
+      if (!in.read(&bs, 4)) {
+        if (in.corrupt()) return 2;
+        done = true;
+        break;
+      }
+      if (bs <= 0 || bs > (1 << 27)) return 2;
       rec.resize(bs);
-      if (!in.read(rec.data(), bs)) { done = true; break; }
+      if (!in.read(rec.data(), bs)) return 2;
       int32_t r_rid, r_pos;
       memcpy(&r_rid, rec.data(), 4);
       memcpy(&r_pos, rec.data() + 4, 4);

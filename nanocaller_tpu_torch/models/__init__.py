@@ -4,4 +4,5 @@ package, read by path)."""
 from .indel import HaploidIndelModel, IndelModel
 from .registry import load_model
 from .snp import HaploidSNPModel, SNPModel
-from .weights import torch_state_dict_from_params
+from .weights import (init_params, params_from_torch_state_dict,
+                      params_to_npz, torch_state_dict_from_params)

@@ -30,6 +30,12 @@ class _Trunk(nn.Module):
         self.conv3 = nn.Conv2d(32, 64, (2, 3), stride=(1, 2))
         self.fc1 = nn.Linear(3 * 9 * 64, 48)
 
+    def dense(self, layer, x):
+        """One of the dense layers fc1, fa and fc2 applied to x (the
+        tensor-parallel train step, runtime/sharding.py, applies its
+        slices of them instead)."""
+        return layer(x)
+
     def trunk(self, x):
         x = x.permute(0, 3, 1, 2)  # NHWC → NCHW
         m = torch.cat([F.selu(self.conv1_1(x)), F.selu(self.conv1_2(x)),
@@ -37,7 +43,7 @@ class _Trunk(nn.Module):
         m = F.selu(self.conv2(m))
         m = F.selu(self.conv3(m))
         flat = m.permute(0, 2, 3, 1).reshape(m.shape[0], -1)  # NHWC order
-        return F.selu(self.fc1(flat))
+        return F.selu(self.dense(self.fc1, flat))
 
 
 class SNPModel(_Trunk):
@@ -54,17 +60,24 @@ class SNPModel(_Trunk):
         self.fc3 = nn.Linear(16 + 4 * 2, 8)
         self.GT = nn.Linear(8, 2)
 
-    def forward(self, x, ref):
+    def forward(self, x, ref, return_logits=False):
         """x: (B,5,41,5) float32; ref: (B,4) one-hot of the candidate's
-        ref base → (probs (B,4,2) of the A,G,T,C heads, gt (B,2))."""
+        ref base → (probs (B,4,2) of the A,G,T,C heads, gt (B,2)); with
+        return_logits=True the pre-softmax head logits (B,4,2) and GT
+        logits (B,2) instead (the training loss, train/snp_train.py).
+        The GT branch takes the heads' softmax outputs either way, as
+        the JAX model does."""
         fc1 = self.trunk(x)
-        fa = F.selu(self.fa(fc1))
-        outs = [torch.softmax(head(torch.cat([fa, ref[:, i:i + 1]], dim=1)),
-                              dim=-1)
-                for i, head in enumerate((self.A, self.G, self.T, self.C))]
-        fc2 = F.selu(self.fc2(fc1))
+        fa = F.selu(self.dense(self.fa, fc1))
+        logits = [head(torch.cat([fa, ref[:, i:i + 1]], dim=1))
+                  for i, head in enumerate((self.A, self.G, self.T, self.C))]
+        outs = [torch.softmax(lg, dim=-1) for lg in logits]
+        fc2 = F.selu(self.dense(self.fc2, fc1))
         fc3 = F.selu(self.fc3(torch.cat([fc2] + outs, dim=1)))
-        return torch.stack(outs, dim=1), torch.softmax(self.GT(fc3), dim=-1)
+        gt_logits = self.GT(fc3)
+        if return_logits:
+            return torch.stack(logits, dim=1), gt_logits
+        return torch.stack(outs, dim=1), torch.softmax(gt_logits, dim=-1)
 
 
 class HaploidSNPModel(_Trunk):

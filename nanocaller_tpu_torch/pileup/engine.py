@@ -578,6 +578,27 @@ class SiteCodes:
         lo, hi = self.indptr[site_i], self.indptr[site_i + 1]
         return self.rid[lo:hi], self.code[lo:hi]
 
+    def at_pos(self, pos):
+        """(rids, codes) at genomic position pos; empty when pos is not
+        one of the sites."""
+        i = np.searchsorted(self.sites, pos)
+        if i >= len(self.sites) or self.sites[i] != pos:
+            return np.zeros(0, np.int32), np.zeros(0, np.int8)
+        return self.at(i)
+
+    def codes_for(self, site_i, rids):
+        """Codes at site index site_i for the given read ids; 4 (OTHER)
+        where a read has no observation there (the training examples'
+        neighbour columns, train/data.py)."""
+        srid, scode = self.at(site_i)
+        out = np.full(len(rids), OTHER, dtype=np.int8)
+        if len(srid):
+            j = np.searchsorted(srid, rids)
+            ok = j < len(srid)
+            ok[ok] = srid[j[ok]] == rids[ok]
+            out[ok] = scode[j[ok]]
+        return out
+
     def indexed_keys(self, n_reads):
         """Encoded (site, rid) keys of all observations, ascending, for one
         searchsorted lookup across many sites (cached per n_reads)."""

@@ -465,10 +465,11 @@ def get_indel_candidates(bam, fasta, chunk, *, seq_type="ont", mincov=4,
                          maxcov=160, ins_t=0.4, del_t=0.6, win_size=40,
                          small_win_size=4, impute_indel_phase=False,
                          exclude=None, ploidy="diploid", rw=None, tags=None,
-                         device="cuda", timers=None):
+                         preset_variants=None, device="cuda", timers=None):
     """Full indel feature generation for one chunk (1-based chunk coords):
     collect_chunk_jobs on the host, then finish_indel_jobs on `device`
-    (timers: as finish_indel_jobs takes them).
+    (timers: as finish_indel_jobs takes them). preset_variants: as
+    collect_chunk_jobs takes them (the training examples).
 
     Diploid returns IndelBatch; haploid returns HaploidIndelBatch.
     All read-vs-ref MSA alignments and consensus-vs-ref allele
@@ -481,7 +482,7 @@ def get_indel_candidates(bam, fasta, chunk, *, seq_type="ont", mincov=4,
         ins_t=ins_t, del_t=del_t, win_size=win_size,
         small_win_size=small_win_size,
         impute_indel_phase=impute_indel_phase, exclude=exclude,
-        ploidy=ploidy, rw=rw, tags=tags)
+        ploidy=ploidy, rw=rw, tags=tags, preset_variants=preset_variants)
     return finish_indel_jobs([rec], device=device, timers=timers)[0]
 
 
@@ -499,9 +500,16 @@ def _inject_tags(rw, tags):
 def collect_chunk_jobs(bam, fasta, chunk, *, seq_type="ont", mincov=4,
                        maxcov=160, ins_t=0.4, del_t=0.6, win_size=40,
                        small_win_size=4, impute_indel_phase=False,
-                       exclude=None, ploidy="diploid", rw=None, tags=None):
+                       exclude=None, ploidy="diploid", rw=None, tags=None,
+                       preset_variants=None):
     """The host half of get_indel_candidates for one chunk: decode, scan
     and collect_msa_jobs. Returns its picklable job record.
+
+    preset_variants: {anchor pos0: anchor type (0 the big window, 1 the
+    small)} given candidate anchors (the training examples smear truth
+    positions into them, train/indel_data.py); they skip the trigger
+    scan, and the deferred decode finishes events at those anchors only.
+    None (the calling path): the scan picks the candidates.
 
     When rw is None and the input is a BAM, the decode runs in two native
     phases (engine.indel_deferred_decode): the scan needs no aligned-base
@@ -533,19 +541,27 @@ def collect_chunk_jobs(bam, fasta, chunk, *, seq_type="ont", mincov=4,
         scan_cols = scan_cols[~exclude.mask(contig, scan_cols)]
 
     haploid = ploidy == "haploid"
-    triggers = _compute_triggers(
-        rw, scan_cols, win_size=win_size, small_win_size=small_win_size,
-        mincov=mincov, ins_t=ins_t, del_t=del_t,
-        impute_indel_phase=impute_indel_phase and not haploid,
-        haploid=haploid) if len(scan_cols) else (
-            np.zeros(0, bool), np.zeros(0, bool), np.zeros(0, bool))
-    if deferred is not None:
-        deferred.finish_events(
-            _event_columns_needed(scan_cols, triggers, win_size))
-    cview = _ColumnView(rw)
-    variants, extra = _select_candidates(
-        rw, scan_cols, triggers, win_size, mincov,
-        sig_provider=None if haploid else cview.signature_groups)
+    if preset_variants is not None:
+        # training path: tensorize the given anchors
+        # (misc/training/generate_indel_pileups.py smears truth positions)
+        variants, extra = dict(preset_variants), {}
+        if deferred is not None:
+            deferred.finish_events(variants.keys())
+        cview = _ColumnView(rw)
+    else:
+        triggers = _compute_triggers(
+            rw, scan_cols, win_size=win_size, small_win_size=small_win_size,
+            mincov=mincov, ins_t=ins_t, del_t=del_t,
+            impute_indel_phase=impute_indel_phase and not haploid,
+            haploid=haploid) if len(scan_cols) else (
+                np.zeros(0, bool), np.zeros(0, bool), np.zeros(0, bool))
+        if deferred is not None:
+            deferred.finish_events(
+                _event_columns_needed(scan_cols, triggers, win_size))
+        cview = _ColumnView(rw)
+        variants, extra = _select_candidates(
+            rw, scan_cols, triggers, win_size, mincov,
+            sig_provider=None if haploid else cview.signature_groups)
 
     try:
         return collect_msa_jobs(

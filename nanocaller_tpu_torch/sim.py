@@ -232,6 +232,64 @@ def write_bam(path, contig, contig_len, reads, tags_by_name=None, mapq=60,
     return path
 
 
+def write_bam_multi(path, contig_reads, contig_lens, tag_haplotypes=False,
+                    mapq=60):
+    """contig_reads: {contig: reads list}; contig_lens: {contig: len}."""
+    names = list(contig_lens)
+    recs = []
+    for ci, contig in enumerate(names):
+        for qname, pos, seq, cigar, hap in contig_reads.get(contig, []):
+            cig = [(_CIGAR_OP_NUM[op], l) for op, l in cigar]
+            tags = {"HP": hap, "PS": 1} if tag_haplotypes else {}
+            recs.append(AlignedRead("%s_%s" % (contig, qname), 0, ci, pos,
+                                    mapq, cig, seq,
+                                    np.full(len(seq), 30, np.uint8), tags))
+    recs.sort(key=lambda r: (r.ref_id, r.pos))
+    with BamWriter(path, names, [contig_lens[n] for n in names]) as w:
+        for r in recs:
+            w.write(r)
+    return path
+
+
+def write_truth_vcf(path, contig, ref_seq, snps=(), indels=(), sample="TRUTH"):
+    """Emit the planted variants as a truth VCF (the training inputs)."""
+    return write_truth_vcf_multi(path, {contig: (ref_seq, snps, indels)},
+                                 sample=sample)
+
+
+def write_truth_vcf_multi(path, per_contig, sample="TRUTH"):
+    """Multi-contig truth VCF. per_contig: {name: (ref_seq, snps, indels)}
+    in the desired header/record contig order."""
+    from .io.vcf import VcfRecord, VcfWriter
+
+    hdr = ["##fileformat=VCFv4.2"]
+    hdr += ["##contig=<ID=%s>" % c for c in per_contig]
+    hdr += ['##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+            "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t%s"
+            % sample]
+    with VcfWriter(path, hdr) as w:
+        for contig, (ref_seq, snps, indels) in per_contig.items():
+            recs = []
+            for pos, alt, gt in snps:
+                gt_str = "1/1" if gt == "hom" else "0/1"
+                recs.append(VcfRecord(contig, pos + 1, ref_seq[pos], alt,
+                                      "50", "PASS", format_="GT",
+                                      samples=[gt_str]))
+            for pos, kind, val, gt in indels:
+                gt_str = "1/1" if gt == "hom" else "0/1"
+                if kind == "ins":
+                    ref, alt = ref_seq[pos], ref_seq[pos] + val
+                else:
+                    ref, alt = ref_seq[pos : pos + 1 + int(val)], ref_seq[pos]
+                recs.append(VcfRecord(contig, pos + 1, ref, alt, "50",
+                                      "PASS", format_="GT",
+                                      samples=[gt_str]))
+            recs.sort(key=lambda r: r.pos)
+            for r in recs:
+                w.write(r)
+    return path
+
+
 def _plant(ref, snp_every, indel_every, hom_only=False):
     """A SNP every `snp_every` bp (het1, het2, hom in turn, or all hom;
     the alt never the ref base) and, unless hom_only, a 1-6 bp insertion
@@ -281,6 +339,36 @@ def write_all_fixture(out_dir, length, seed, snp_every=1000,
     write_fasta(fasta_p, {contig: ref})
     write_bam(bam_p, contig, length, reads)
     return fasta_p, bam_p, snps, indels, len(reads)
+
+
+def write_train_fixture(out_dir, length, seed, snp_every=1000,
+                        indel_every=5000, depth=30, read_len=8000,
+                        error_rate=0.03, indel_error_rate=0.01,
+                        contig="chr_t"):
+    """The training fixture: write_all_fixture's contig (the same draws
+    from the same seed) as an untagged BAM (the SNP examples' input), a
+    haplotagged copy (the indel examples' input: HP from each read's
+    haplotype, PS 1) and a truth VCF of the planted variants. Returns
+    (fasta path, bam path, tagged bam path, truth VCF path, snps,
+    indels)."""
+    import os
+
+    from .io.fasta import write_fasta
+
+    rng = np.random.default_rng(seed)
+    ref = random_seq(rng, length)
+    snps, indels = _plant(ref, snp_every, indel_every)
+    reads = make_diploid_readset(rng, ref, snps=snps, indels=indels,
+                                 depth=depth, read_len=read_len,
+                                 error_rate=error_rate,
+                                 indel_error_rate=indel_error_rate)
+    paths = [os.path.join(out_dir, "train_" + name) for name in
+             ("ref.fa", "reads.bam", "tagged.bam", "truth.vcf.gz")]
+    write_fasta(paths[0], {contig: ref})
+    write_bam(paths[1], contig, length, reads)
+    write_bam(paths[2], contig, length, reads, tag_haplotypes=True)
+    write_truth_vcf(paths[3], contig, ref, snps, indels)
+    return (*paths, snps, indels)
 
 
 def write_contigs_fixture(out_dir, contigs, depth=30, read_len=8000,

@@ -19,7 +19,9 @@ uncapped run;
 `--mode all --cpu 2` on cuda against cpu, with no CUDA context in a
 worker; two replicas on the card (bit-identical probabilities, one K3 or
 K5 launch a cohort and replica) and two `--num_processes 2` processes
-on it. Skips without a GPU.
+on it; one train step of each model cuda against cpu (and twice on the
+card, bit-identical), and the sharded SNP step at world size 1 on NCCL
+against the unsharded step, bit for bit. Skips without a GPU.
 
 Imports neither jax nor the JAX package, so that it also runs where only
 the port is installed: `python -m pytest --noconftest tests/test_torch_gpu.py`.
@@ -719,3 +721,50 @@ def test_two_processes_on_card(tmp_path):
     for i in range(2):
         with open(tmp_path / "procs" / ("metrics.host%03d.json" % i)) as fh:
             assert json.load(fh)["global_counts"] == counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,B", [("snp", 128), ("indel", 64)])
+def test_train_step_cuda_matches_cpu(kind, B):
+    """One train step of each model at the training CLIs' batch size from
+    the same flax-like init and batch: loss within 2e-5 and every
+    gradient within rtol 1e-4 / atol 1e-6 of the CPU's; two steps on the
+    card bit-identical."""
+    _need_gpu()
+    import chip_smoke
+
+    rng = np.random.default_rng(B)
+    if kind == "snp":
+        batch = {"x": rng.normal(size=(B, 5, 41, 5)).astype(np.float32),
+                 "ref": np.eye(4, dtype=np.float32)[rng.integers(0, 4, B)],
+                 "base_labels": np.eye(2, dtype=np.float32)[
+                     rng.integers(0, 2, (B, 4))],
+                 "gt_label": np.eye(2, dtype=np.float32)[
+                     rng.integers(0, 2, B)]}
+    else:
+        batch = {"x": rng.normal(size=(B, 15, 128, 2)).astype(np.float32),
+                 "label": np.eye(4, dtype=np.float32)[
+                     rng.integers(0, 4, B)]}
+    state = chip_smoke.init_state(kind, 5)
+    cpu = chip_smoke.one_step(kind, state, batch, "cpu")
+    cuda = chip_smoke.one_step(kind, state, batch, "cuda")
+    assert chip_smoke.steps_differ(cuda, cpu, kind) is None
+    assert chip_smoke.steps_equal(cuda, chip_smoke.one_step(
+        kind, state, batch, "cuda"))
+
+
+@pytest.mark.cuda
+def test_sharded_step_world_one_on_nccl():
+    """The sharded SNP step in one NCCL process computes the unsharded
+    step on the card bit for bit (loss, gradients, updated weights)."""
+    _need_gpu()
+    import chip_smoke
+    from nanocaller_tpu_torch.runtime import sharding
+
+    mesh = sharding.make_mesh(1)
+    state, batch = sharding.demo_state(), sharding.demo_batch(mesh)
+    out = sharding.shard_train_step_demo(1, device="cuda", state_dict=state,
+                                         batch=batch)
+    assert chip_smoke.steps_equal(
+        (out["loss"], out["grads"], out["params"]),
+        chip_smoke.one_step("snp", state, batch, "cuda"))

@@ -1,6 +1,8 @@
 """The port imports neither jax/flax/optax nor anything of nanocaller_tpu
-(its native library, CRAM and rANS modules included; the library builds
-from the port's own ncio.cpp), and device="cuda" without a GPU raises."""
+(its native library, CRAM and rANS modules, training modules, training
+CLIs and entry module included; the library builds from the port's own
+ncio.cpp), and device="cuda" without a GPU raises, on the calling path
+and on the training, sharded-step and entry paths."""
 
 import os
 import re
@@ -38,7 +40,14 @@ assert {"nanocaller_tpu_torch.phase.mec", "nanocaller_tpu_torch.phase.wmec",
         "nanocaller_tpu_torch.io.rans", "nanocaller_tpu_torch.runtime.workers",
         "nanocaller_tpu_torch.runtime.scheduler",
         "nanocaller_tpu_torch.runtime.distributed",
-        "nanocaller_tpu_torch.runtime.sharding"} <= set(mods), mods
+        "nanocaller_tpu_torch.runtime.sharding",
+        "nanocaller_tpu_torch.train.snp_train",
+        "nanocaller_tpu_torch.train.indel_train",
+        "nanocaller_tpu_torch.train.data",
+        "nanocaller_tpu_torch.train.indel_data",
+        "nanocaller_tpu_torch.train.train_snp",
+        "nanocaller_tpu_torch.train.train_indel",
+        "nanocaller_tpu_torch.entry"} <= set(mods), mods
 # the native library builds from the port's own source and loads
 from nanocaller_tpu_torch.io import native
 assert native.get_lib() is not None
@@ -97,3 +106,39 @@ def test_cuda_without_gpu_raises():
         IndelCallerState.create("ONT-HG002")
     with pytest.raises(RuntimeError):
         SnpCallerState.create("ONT-HG002")
+
+
+def test_training_and_entry_cuda_without_gpu_raise(tmp_path):
+    """Every training entry point defaults to the card and raises without
+    one; none gives way to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    import numpy as np
+
+    from nanocaller_tpu_torch import entry
+    from nanocaller_tpu_torch.runtime import sharding
+    from nanocaller_tpu_torch.train import indel_data, indel_train, snp_train
+    from nanocaller_tpu_torch.train.train_indel import main as indel_main
+    from nanocaller_tpu_torch.train.train_snp import main as snp_main
+
+    ex = {"x": np.zeros((4, 5, 41, 5), np.int8),
+          "ref": np.zeros(4, np.uint8), "gt": np.zeros(4, np.uint8),
+          "allele1": np.zeros(4, np.uint8), "allele2": np.zeros(4, np.uint8),
+          "pos": np.arange(4, dtype=np.int64)}
+    out = str(tmp_path / "out")
+    cli = ["--bam", "x.bam", "--ref", "x.fa", "--truth_vcf", "x.vcf.gz",
+           "--output", out]
+    calls = [
+        lambda: snp_train.train_snp_model(ex, None, out, epochs=1),
+        lambda: indel_train.train_indel_model(
+            np.zeros((4, 15, 128, 2), np.float32), np.zeros(4, np.int64),
+            out, epochs=1),
+        lambda: indel_data.generate_indel_training_examples(
+            None, None, {}, {"chrom": "c", "start": 1, "end": 10}),
+        lambda: snp_main(cli), lambda: indel_main(cli),
+        lambda: sharding.shard_train_step_demo(1),
+        lambda: sharding.shard_inference_demo(sharding.make_mesh(1)),
+        lambda: entry.entry(), lambda: entry.dryrun_multichip(1)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()

@@ -28,6 +28,7 @@ from nanocaller_tpu_torch.pileup.engine import (column_counts, decode_reads,
 
 from fixtures import make_fixture
 from test_wmec_prod import gen_block
+from torch_jax_native import jax_native_lib
 from torch_threads import _torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -153,6 +154,78 @@ def test_corrupt_bam_raises_cleanly(bam_fixture, tmp_path):
         with pytest.raises(ValueError, match="corrupt"):
             decode_reads(BamReader(path), "chr_t", 0, 5000,
                          use_native=use_native)
+
+
+def _block_starts(data):
+    """The file offsets of a BGZF file's blocks (BSIZE + 1 bytes each)."""
+    offs = [0]
+    while offs[-1] < len(data):
+        offs.append(offs[-1] + int.from_bytes(
+            data[offs[-1] + 16:offs[-1] + 18], "little") + 1)
+    return offs
+
+
+@pytest.fixture
+def corrupt_first_block(bam_fixture, tmp_path):
+    """The fixture with the deflate bytes of its first record block (block
+    1; block 0 holds the header) flipped, its header and EOF marker
+    intact; (indexed path, unindexed path)."""
+    data = open(bam_fixture[1], "rb").read()
+    offs = _block_starts(data)
+    lo, hi = offs[1] + 18, offs[2] - 8  # BGZF header, CRC32 + ISIZE
+    bad = data[:lo] + bytes(x ^ 0x5A for x in data[lo:hi]) + data[hi:]
+    paths = []
+    for name in ("indexed", "unindexed"):
+        path = str(tmp_path / ("%s.bam" % name))
+        with open(path, "wb") as fh:
+            fh.write(bad)
+        paths.append(path)
+    shutil.copy(bam_fixture[1] + ".bai", paths[0] + ".bai")
+    return paths
+
+
+@pytest.mark.parametrize("indexed", [True, False])
+@pytest.mark.parametrize("decode", ["whole", "deferred", "oracle"])
+def test_corrupt_first_block_raises(corrupt_first_block, indexed, decode):
+    """A first record block that fails to inflate raises on an indexed and
+    on an unindexed scan: the native decoder no longer skips the index
+    chunk (indexed) or ends the scan as if at EOF (unindexed)."""
+    bam = BamReader(corrupt_first_block[0 if indexed else 1])
+    assert (bam._index is not None) == indexed
+    with pytest.raises(ValueError, match="corrupt"):
+        if decode == "deferred":
+            deferred_decode(bam, "chr_t", 0, 5000).finish(
+                np.arange(40, 5000, 37, dtype=np.int64))
+        else:
+            decode_reads(bam, "chr_t", 0, 5000, keep_seq=True,
+                         use_native=decode == "whole")
+
+
+@pytest.mark.parametrize("indexed", [True, False])
+def test_corrupt_first_block_retagger_raises(corrupt_first_block, tmp_path,
+                                             indexed):
+    bam = BamReader(corrupt_first_block[0 if indexed else 1])
+    with pytest.raises(ValueError, match="corrupt"):
+        N.haplotag_native(bam, str(tmp_path / "out.phased.bam"), "chr_t", 0,
+                          5000, {})
+
+
+@pytest.mark.parametrize("indexed", [True, False])
+def test_jax_native_decode_drops_a_corrupt_first_block(
+        corrupt_first_block, bam_fixture, monkeypatch, indexed):
+    """The fault the port's repair removes: the JAX package's copy of the
+    decoder returns no read and no error on the same file, where the
+    intact file has reads."""
+    from nanocaller_tpu.io.bam import DEFAULT_FLAG_FILTER
+    from nanocaller_tpu.io.bam import BamReader as JBamReader
+    from nanocaller_tpu.io.native import decode_window_native as j_decode
+
+    jax_native_lib(monkeypatch)
+    path = corrupt_first_block[0 if indexed else 1]
+    got = j_decode(JBamReader(path), "chr_t", 0, 5000, DEFAULT_FLAG_FILTER)
+    want = j_decode(JBamReader(bam_fixture[1]), "chr_t", 0, 5000,
+                    DEFAULT_FLAG_FILTER)
+    assert len(got["read_start"]) == 0 < len(want["read_start"])
 
 
 def test_seqless_reads_skipped_by_both_decoders(tmp_path):

@@ -33,6 +33,7 @@ from nanocaller_tpu_torch.pileup.indel_features import get_indel_candidates
 from nanocaller_tpu_torch.sim import write_all_fixture
 
 from test_wmec_prod import gen_block
+from torch_jax_native import jax_native_lib
 from torch_threads import _torch_threads  # noqa: F401 (autouse)
 
 L = 12000
@@ -107,29 +108,6 @@ def test_exact_refine_and_phase_obs_equal(seed):
         np.testing.assert_array_equal(getattr(got, k), getattr(want, k))
     assert (got.n_blocks, got.mec_cost) == (want.n_blocks, want.mec_cost)
     assert got.n_blocks >= 1
-
-
-def jax_native_lib(monkeypatch):
-    """The JAX package's native library, loaded past a failure that
-    get_lib cached earlier in this process.
-
-    The JAX package builds libncio.so through one shared temporary file
-    at first use, and get_lib keeps its first failure for the whole
-    process: pytest-xdist workers that import it at collection time all
-    at once can lose that race and run on without the library. By test
-    time those builds are over, so the cached failure is cleared (for
-    this test only) and the load tried once more. A library that still
-    does not load fails the test with its error."""
-    lib = j_native.get_lib()
-    if lib is None:
-        cached = j_native._build_error
-        monkeypatch.setattr(j_native, "_build_error", None)
-        lib = j_native.get_lib()
-        if lib is None:
-            pytest.fail("the JAX package's native library does not load: "
-                        "%r (cached before: %r)"
-                        % (j_native._build_error, cached))
-    return lib
 
 
 def test_jax_native_lib_survives_a_cached_build_error(monkeypatch):
