@@ -20,10 +20,17 @@ Phases, each printing one JSON line per case:
    path finds it), with the longest walk's step count; then K4 nw_cigar
    against its plain twin on each of K2's op streams and the pairs' raw
    bytes (with lowercase and N bytes), the counts and every run exactly
-   equal, with kernel, twin and bound times; then K5 snp_dense_pileup
-   against its plain twin at B = 4096 and R = 160 and 64 on random dense
-   batches (deep rows, reads masked off), both outputs exactly equal,
-   with kernel, twin and bound times;
+   equal, with kernel, twin and bound times, and on its hand-built edge
+   inputs (sim.cigar_edge_case, whole and from their second row: the last
+   non-zero step at block edges, all-zero rows, bad streams, B = 1 and
+   one over the kernel's changes of warps a pair, every bucket pair the
+   main path and --preset ccs launch); then K5 snp_dense_pileup against
+   its plain twin at B = 4096 and R = 160 and 64 on random dense batches
+   (deep rows, reads masked off), both outputs exactly equal, with
+   kernel, twin and bound times, and on its edge inputs
+   (sim.dense_edge_case: R around a byte counter's range and a 16-byte
+   load, one row, counts equal to R); then the launch floor (a one-cycle
+   spin kernel timed as the kernels are);
 4. the indel CNNs (diploid and haploid packs) on cuda against cpu,
    atol 2e-5, B = 256;
 5. the indel slice: a haplotagged fixture (one 500 kb contig, ~30x,
@@ -532,7 +539,48 @@ def phase_kernels(K, rng):
         emit(row)
         rows.append(row)
         del tb, ops_k, twin_k, cur, runs, w_runs
+    rows += phase_k4_edges(K)
     rows += phase_k5(rng)
+    floor = cuda_ms(lambda: torch.cuda._sleep(1), 10)
+    emit({"phase": "launch_floor", "launch_floor_ms": floor})
+    return rows
+
+
+def phase_k4_edges(K):
+    """Phase 3, K4 on its hand-built edge inputs (sim.cigar_edge_case:
+    last non-zero steps at 16-, 32- and 128-byte block edges, all-zero
+    rows, bad streams faulting in the first, a middle and the last chunk,
+    B = 1, B one over the kernel's changes of warps a pair and of waves,
+    every bucket pair the main path, --preset ccs and training launch),
+    whole and from their second row (op rows off the 16-byte grid): the
+    counts and every run equal to the twin's, else fail."""
+    import torch
+
+    from nanocaller_tpu_torch.sim import CIGAR_EDGE_LABELS, cigar_edge_case
+
+    rows = []
+    for label in CIGAR_EDGE_LABELS:
+        whole = [torch.from_numpy(a).cuda() for a in cigar_edge_case(label)]
+        for view, args in (("whole", whole),
+                           ("from_row_1", [a[1:] for a in whole])):
+            if not len(args[0]):
+                continue
+            runs, counts = K.nw_cigar(*args)
+            w_runs, w_counts = K.nw_cigar_reference(*args)
+            torch.cuda.synchronize()
+            keep = torch.arange(runs.shape[1], device="cuda")[None, :] < \
+                counts[:, None]
+            shape = {"inputs": "edge_" + label, "view": view,
+                     "B": len(args[0]), "Q": args[1].shape[1],
+                     "R": args[2].shape[1]}
+            if not torch.equal(counts, w_counts) or not torch.equal(
+                    torch.where(keep, runs, 0), torch.where(keep, w_runs, 0)):
+                fail("K4 differs from its twin at %s" % shape)
+            row = {"phase": "K4_nw_cigar_edge", **shape, "exact": True,
+                   "max_abs_err": 0, "bad_rows": int((counts < 0).sum()),
+                   "runs": int(counts.clamp(min=0).sum())}
+            emit(row)
+            rows.append(row)
     return rows
 
 
@@ -596,10 +644,15 @@ def phase_k5(rng):
     """Phase 3, K5 snp_dense_pileup against its plain twin (k5_row) at
     B = K5_B rows and each read-axis size of K5_R, on random dense
     batches with deep rows (every read in) and reads masked off with
-    codes (sim.random_dense_batch)."""
+    codes (sim.random_dense_batch); then on its edge inputs
+    (sim.dense_edge_case: R = 0, 1, 15, 17, 224, 225, 255, 256, 300 at
+    B = 133, one row, columns whose count is R), whole and from their
+    second row, both outputs equal to the twin's, else fail."""
     import torch
 
-    from nanocaller_tpu_torch.sim import random_dense_batch
+    from nanocaller_tpu_torch.pileup import snp_dense as K5
+    from nanocaller_tpu_torch.sim import (DENSE_EDGE_LABELS, dense_edge_case,
+                                          random_dense_batch)
 
     rows = []
     for R in K5_R:
@@ -607,6 +660,25 @@ def phase_k5(rng):
         args = [torch.from_numpy(a).cuda() for a in host]
         rows.append(k5_row("random_dense", args)[0])
         del args
+    for label in DENSE_EDGE_LABELS:
+        whole = [torch.from_numpy(a).cuda() for a in dense_edge_case(label)]
+        for view, args in (("whole", whole),
+                           ("from_row_1", [a[1:] for a in whole])):
+            if not len(args[0]):
+                continue
+            with torch.inference_mode():
+                outs = K5.snp_dense_pileup(*args)
+                twins = K5.snp_dense_pileup_reference(*args)
+                torch.cuda.synchronize()
+            shape = {"inputs": "edge_" + label, "view": view,
+                     "B": len(args[0]), "R": args[0].shape[1]}
+            if not all(o.shape == w.shape and torch.equal(o, w)
+                       for o, w in zip(outs, twins)):
+                fail("K5 differs from its twin at %s" % shape)
+            row = {"phase": "K5_snp_dense_pileup_edge", **shape,
+                   "exact": True, "max_abs_err": 0.0}
+            emit(row)
+            rows.append(row)
     return rows
 
 

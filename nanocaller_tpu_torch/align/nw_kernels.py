@@ -23,7 +23,8 @@ csrc/snp_pileup.cu, whose wrapper is pileup/snp_pileup.py, and K5
 csrc/snp_dense_pileup.cu, whose wrapper is pileup/snp_dense.py) is built
 at first use with nvcc for sm_90a into nanocaller_tpu_torch/_build/ (a
 directory .gitignore lists), into one library named by the hash of the
-sources, and loaded with ctypes.
+sources and the headers they include (HEADERS: csrc/stage.cuh, K4's and
+K5's staging into shared memory), and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in
                 ("nw_tb.cu", "nw_walk.cu", "nw_cigar.cu", "snp_pileup.cu",
                  "snp_dense_pileup.cu"))
+# headers the sources include (part of the library's hash)
+HEADERS = (os.path.join(_PKG, "csrc", "stage.cuh"),)
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -85,7 +88,7 @@ def build():
     library path: one nvcc per source, all started together, then one
     link into a .so."""
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as fh:
             h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())

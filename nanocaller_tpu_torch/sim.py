@@ -552,3 +552,210 @@ def random_dense_batch(rng, B, R, deep_share=0.25):
     norm = rng.uniform(0.3, 3.0, B).astype(np.float32)
     return (codes, read_mask, col_ref.astype(np.int8), col_valid,
             center_ref.astype(np.int8), norm)
+
+
+# K4 nw_cigar's hand-built edge inputs (cigar_edge_case): the bucket pairs
+# the main path ((Q, 192)), --preset ccs ((Q, 320)) and the training
+# features ((128, 128)) launch, and the batch sizes one over where
+# csrc/nw_cigar.cu on a 132-SM card goes from 4 warps a pair to 2 (132
+# pairs), from 2 to 1 (264) and past one wave of 32 CTAs an SM (4,224)
+CIGAR_EDGE_BUCKETS = ((64, 192), (128, 192), (192, 192), (64, 320),
+                      (128, 320), (192, 320), (256, 320), (320, 320),
+                      (128, 128))
+CIGAR_EDGE_LABELS = (("boundaries", "bad", "bad_small", "one_pair",
+                      "pairs_133", "pairs_265", "pairs_4225")
+                     + tuple("bucket_%dx%d" % qr for qr in CIGAR_EDGE_BUCKETS))
+# K5 snp_dense_pileup's edge inputs (dense_edge_case): read axes around a
+# 16-byte load, csrc/snp_dense_pileup.cu's tile of 224 reads and a byte
+# counter's range, one row, and B = 133 (four rows a CTA leave one in the
+# last)
+DENSE_EDGE_LABELS = tuple("R%d" % R for R in (0, 1, 15, 17, 224, 225, 255,
+                                              256, 300)) \
+    + ("one_row_R45", "one_row_R300", "full_column")
+# the raw bytes of K4's edge pairs: mostly ACGT, some N and soft-masked
+_EDGE_LETTERS = np.frombuffer(b"ACGTNacgtn", np.uint8)
+_EDGE_P = np.array([0.2] * 4 + [0.05] + [0.025] * 4 + [0.05])
+
+
+def _edge_walk(rng, n, Q, R):
+    """n ops (1 diag, 2 ins, 3 del) in forward order consuming at most Q
+    query and R reference bytes (n <= Q + R), in runs of 1-40 of one op
+    where the bytes left allow it."""
+    walk, qi, ri = [], 0, 0
+    while len(walk) < n:
+        op, run = int(rng.choice((1, 1, 2, 3))), int(rng.integers(1, 41))
+        for _ in range(min(run, n - len(walk))):
+            left = n - len(walk)
+            cap = (Q - qi) + (R - ri)
+            o = op
+            if o == 1 and (qi >= Q or ri >= R or cap - 2 < left - 1):
+                o = 2 if qi < Q else 3
+            if o == 2 and qi >= Q:
+                o = 3
+            if o == 3 and ri >= R:
+                o = 2
+            walk.append(o)
+            qi += o in (1, 2)
+            ri += o in (1, 3)
+    return walk
+
+
+def cigar_edge_rows(rng, Q, R, rows):
+    """Inputs of K4 nw_cigar built row by row: `rows` holds one (h, n,
+    fault[, pos]) a pair, h the last non-zero step (-1 for an all-zero
+    row) and n <= h + 1 the non-zero steps at and below it: h the top one,
+    the others at random places under it (or at the row positions `pos`,
+    in walk order from h down), zero steps between. The walk is valid (at
+    most Q query and R reference bytes) unless `fault` says: ("code", k,
+    v) puts code v at walk step k, ("ins",) and ("del",) make every step
+    an insertion or a deletion (bad once n > Q, or n > R). The raw bytes
+    are "ACGTNacgtn" at random, the reference byte equal to the query
+    byte at nine in ten diagonal steps (long '=' runs).
+
+    Returns ops (B, T) int8 with T = 2(Q + R) + 2, qraw (B, Q) and rraw
+    (B, R) uint8."""
+    T = 2 * (Q + R) + 2
+    B = len(rows)
+    ops = np.zeros((B, T), np.int8)
+    qraw = _EDGE_LETTERS[rng.choice(10, (B, Q), p=_EDGE_P)]
+    rraw = _EDGE_LETTERS[rng.choice(10, (B, R), p=_EDGE_P)]
+    for b, (h, n, fault, *pos) in enumerate(rows):
+        if h < 0:
+            continue
+        kind = fault[0] if fault else None
+        if kind in ("ins", "del"):
+            walk = [2 if kind == "ins" else 3] * n
+        else:
+            walk = _edge_walk(rng, n, Q, R)
+        if kind == "code":
+            walk[fault[1]] = fault[2]
+        qi = ri = 0
+        for o in walk:
+            if o == 1 and qi < Q and ri < R and rng.random() < 0.9:
+                rraw[b, ri] = qraw[b, qi]
+            qi += o in (1, 2)
+            ri += o in (1, 3)
+        if pos:
+            at = np.asarray(pos[0], np.int64)
+        else:
+            under = np.sort(rng.choice(h, n - 1, replace=False))[::-1] \
+                if n > 1 else np.zeros(0, np.int64)
+            at = np.concatenate([[h], under]).astype(np.int64)
+        ops[b, at] = walk
+    return ops, qraw, rraw
+
+
+def _random_rows(rng, B, Q, R):
+    """B valid rows at random: h anywhere in the row (one in eight all
+    zero), as many non-zero steps as the bytes allow."""
+    T = 2 * (Q + R) + 2
+    rows = []
+    for _ in range(B):
+        if rng.random() < 0.125:
+            rows.append((-1, 0, None))
+            continue
+        h = int(rng.integers(0, T))
+        rows.append((h, int(rng.integers(1, min(h + 1, Q + R) + 1)), None))
+    return rows
+
+
+def cigar_edge_case(label):
+    """One of K4's edge inputs by label (CIGAR_EDGE_LABELS), each from its
+    own seed: (ops, qraw, rraw) as cigar_edge_rows returns them.
+
+    - boundaries: (192, 192), T = 770, the last non-zero step of each pair
+      at the first or last byte of a 16-, 32- or 128-byte block of the op
+      array, at a walk of 1, 32, 33, 64 or 65 steps, at the row's last
+      byte, or no step at all (count 0);
+    - bad: (64, 192), T = 514: codes 5, -3 and 4 at a stream's first,
+      middle and last step, and insertions (deletions) past Q (R) in a
+      middle or the last chunk of 32 steps, between valid rows;
+    - bad_small: (8, 8), T = 34: the same faults in the first chunk and
+      in the second, which is the last;
+    - one_pair: B = 1 at (192, 192);
+    - pairs_133, pairs_265, pairs_4225: B one over the kernel's changes
+      of warps a pair and one over a wave, at (192, 192);
+    - bucket_QxR: B = 64 random rows at each CIGAR_EDGE_BUCKETS pair."""
+    rng = np.random.default_rng(4000 + CIGAR_EDGE_LABELS.index(label))
+    if label == "boundaries":
+        Q = R = 192
+        T = 2 * (Q + R) + 2
+        rows = []
+        for b in range(120):
+            kind = b % 12
+            base = b * T  # the row's first byte in the op array
+            if kind < 6:  # first / last byte of a 16, 32, 128-byte block
+                block = (16, 32, 128)[kind // 2]
+                cands = [h for h in range(T)
+                         if (base + h) % block == (0, block - 1)[kind % 2]]
+                h = int(rng.choice(cands))
+            elif kind < 10:
+                h = (0, 31, 32, 64)[kind - 6] + int(rng.integers(0, 2))
+            elif kind == 10:
+                h = T - 1
+            else:
+                rows.append((-1, 0, None))
+                continue
+            rows.append((h, int(rng.integers(1, min(h + 1, Q + R) + 1)),
+                         None))
+        return cigar_edge_rows(rng, Q, R, rows)
+    if label in ("bad", "bad_small"):
+        Q, R = (64, 192) if label == "bad" else (8, 8)
+        T = 2 * (Q + R) + 2
+        n = min(Q + R, 150)
+        h = T - 1 - int(rng.integers(0, 3))
+        rows = []
+        for v in (5, -3, 4):
+            for k in (0, n // 2, n - 1):
+                rows.append((h, n, ("code", k, v)))
+                rows.append((h, int(rng.integers(1, n + 1)), None))
+        if label == "bad":
+            # the (Q+1)-th insertion at step 64 of 65 (in the last chunk of
+            # 32 row positions) or of 200 (a middle one); the (R+1)-th
+            # deletion at the last of 193 or a middle step of 300
+            for kind, m in (("ins", Q + 1), ("ins", 200), ("del", R + 1),
+                            ("del", 300)):
+                rows.append((m - 1 + int(rng.integers(0, 3)), m, (kind,)))
+        else:
+            # the 9th insertion or deletion in the first chunk (row
+            # positions 20 down to 12), or at row position 0, the second
+            # and last chunk of a walk from 33
+            for kind in ("ins", "del"):
+                rows.append((20, 9, (kind,), range(20, 11, -1)))
+                rows.append((33, 9, (kind,), [*range(33, 25, -1), 0]))
+        rows.append((-1, 0, None))
+        return cigar_edge_rows(rng, Q, R, rows)
+    if label == "one_pair":
+        return cigar_edge_rows(rng, 192, 192, [(300, 250, None)])
+    if label.startswith("pairs_"):
+        return cigar_edge_rows(rng, 192, 192,
+                               _random_rows(rng, int(label[6:]), 192, 192))
+    Q, R = map(int, label[len("bucket_"):].split("x"))
+    return cigar_edge_rows(rng, Q, R, _random_rows(rng, 64, Q, R))
+
+
+def dense_edge_case(label):
+    """One of K5's edge inputs by label (DENSE_EDGE_LABELS), each from its
+    own seed, as random_dense_batch returns them: R0 ... R300, B = 133
+    rows at that read axis (R0 without a read; a third of the rows with
+    a read mask at random rather than a prefix); one_row_R45 and
+    one_row_R300, B = 1; full_column, B = 133 at R = 256, every read of
+    a row masked in with one centre base and, at one column, one base,
+    so that one count equals R."""
+    rng = np.random.default_rng(5000 + DENSE_EDGE_LABELS.index(label))
+    if label.startswith("one_row_R"):
+        return random_dense_batch(rng, 1, int(label[len("one_row_R"):]),
+                                  deep_share=1.0)
+    R = 256 if label == "full_column" else int(label[1:])
+    codes, mask, col_ref, col_valid, center_ref, norm = \
+        random_dense_batch(rng, 133, R)
+    scatter = rng.random(133) < 1 / 3
+    mask[scatter] = rng.random((int(scatter.sum()), R)) < 0.6
+    if label == "full_column":
+        for b in range(133):
+            mask[b] = True
+            codes[b, :, 20] = rng.integers(0, 4)
+            w = int(rng.integers(0, 41))
+            codes[b, :, w] = codes[b, 0, 20] if w == 20 else \
+                rng.integers(0, 4)
+    return codes, mask, col_ref, col_valid, center_ref, norm

@@ -13,7 +13,9 @@ the wrapper's refusals; K3 on a chunk wire (the per-chunk path's rows,
 normal and deep, windows over the whole neighbour array), its x equal to
 K5's on the same chunk's dense batch; K5 (snp_dense_pileup) at B = 4096
 and R = 32, 64, 160 with deep and masked-off rows, uint8 masks, one row,
-no row, and the wrapper's refusals; a SNP decode group over the payload
+no row, and the wrapper's refusals; K4 and K5 on their hand-built edge
+inputs (sim.cigar_edge_case, sim.dense_edge_case), whole and from their
+second row (rows off the 16-byte grid); a SNP decode group over the payload
 caps, sent member by member (one K3 launch a member), against its
 uncapped run;
 `--mode all --cpu 2` on cuda against cpu, with no CUDA context in a
@@ -46,7 +48,10 @@ from nanocaller_tpu_torch.pileup.snp_features import (BAND_SCHEDULES,
                                                       get_snp_candidates,
                                                       get_snp_chunk_features,
                                                       get_snp_group_payloads)
-from nanocaller_tpu_torch.sim import (BASES, TIE_KINDS, make_diploid_readset,
+from nanocaller_tpu_torch.sim import (BASES, CIGAR_EDGE_LABELS,
+                                      DENSE_EDGE_LABELS, TIE_KINDS,
+                                      cigar_edge_case, dense_edge_case,
+                                      make_diploid_readset,
                                       random_dense_batch, random_group_wire,
                                       random_seq, tie_heavy_pairs, write_bam)
 from nanocaller_tpu_torch.snp_caller import (SnpCallerState, _coverage_norm,
@@ -220,6 +225,43 @@ def test_cigar_kernel_flags_bad_streams():
     runs, counts = K.nw_cigar(ops.cuda(), q.cuda(), r.cuda())
     assert counts.tolist() == [-1, -1, 2]
     assert runs[2, :2].tolist() == [(1 << 4) | 7, (1 << 4) | 1]
+
+
+# the edge inputs, whole and from their second row (one-row inputs whole)
+_EDGE_VIEWS = [(label, view) for label in CIGAR_EDGE_LABELS
+               + DENSE_EDGE_LABELS for view in ("whole", "from_row_1")
+               if view == "whole" or not label.startswith("one_")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,view", [
+    lv for lv in _EDGE_VIEWS if lv[0] in CIGAR_EDGE_LABELS])
+def test_cigar_kernel_edge_inputs(label, view):
+    """K4 against its twin, exactly, on the hand-built edge inputs
+    (sim.cigar_edge_case: the last non-zero step at 16-, 32- and 128-byte
+    block edges, all-zero rows, bad streams with the fault in the first,
+    a middle and the last chunk, B = 1, B one over where the kernel goes
+    from 4 warps a pair to 2 and to 1 and past a wave, every bucket pair
+    the main path, --preset ccs and training launch); from_row_1 passes
+    the arrays from their second row, so that the op rows start 2 bytes
+    off the 16-byte grid."""
+    _need_gpu()
+    ops, qraw, rraw = (torch.from_numpy(a).cuda()
+                       for a in cigar_edge_case(label))
+    if view == "from_row_1":
+        ops, qraw, rraw = ops[1:], qraw[1:], rraw[1:]
+    before = K.NW_CIGAR_LAUNCHES
+    runs, counts = K.nw_cigar(ops, qraw, rraw)
+    torch.cuda.synchronize()
+    assert K.NW_CIGAR_LAUNCHES == before + 1
+    w_runs, w_counts = K.nw_cigar_reference(ops, qraw, rraw)
+    assert torch.equal(counts, w_counts)
+    keep = torch.arange(runs.shape[1], device="cuda")[None, :] < \
+        counts[:, None]
+    assert torch.equal(torch.where(keep, runs, 0),
+                       torch.where(keep, w_runs, 0))
+    if label.startswith("bad"):
+        assert int((counts == -1).sum()) >= 9
 
 
 @pytest.mark.cuda
@@ -495,6 +537,29 @@ def test_dense_pileup_edges(B, R):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,view", [
+    lv for lv in _EDGE_VIEWS if lv[0] in DENSE_EDGE_LABELS])
+def test_dense_pileup_edge_inputs(label, view):
+    """K5 against its twin, exactly, on the edge inputs
+    (sim.dense_edge_case: R = 0, 1, 15, 17, 224, 225, 255, 256, 300 at
+    B = 133 with prefix and scattered read masks, one row at R = 45 and
+    300, columns whose count is R); from_row_1 passes the arrays from
+    their second row, so that the code rows start off the 16-byte
+    grid."""
+    _need_gpu()
+    args = [_t(a) for a in dense_edge_case(label)]
+    if view == "from_row_1":
+        args = [a[1:] for a in args]
+    before = K5.SNP_DENSE_LAUNCHES
+    got = K5.snp_dense_pileup(*args)
+    torch.cuda.synchronize()
+    assert K5.SNP_DENSE_LAUNCHES == before + 1
+    want = K5.snp_dense_pileup_reference(*args)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.cuda
