@@ -174,7 +174,20 @@ Phases, each printing one JSON line per case:
    chunk wire, counter reset just before and read just after) against
    entry(device="cpu") within 2e-5, timed, and dryrun_multichip(1) (the
    sharded step, the sharded inference, the real --mode all --cpu 2
-   pipeline, whose VCFs must carry calls).
+   pipeline, whose VCFs must carry calls);
+17. the user tools and the one-chunk entry points (phase_tools_api):
+   (a) `python -m nanocaller_tpu_torch.tools.bench_e2e` (E2E_ARGS: its
+   simulate with --hp_profile, `--mode all --cpu 4` in a subprocess,
+   vcf_compare) with --device cuda, then --device cpu on a fixture of the
+   same bytes; its JSON line (walls, stage timers, F1) with the card's
+   name and power limit, the two runs' five VCFs held record for record
+   (compare_records) and the SNP F1 over 0.5; (b) snp_caller.call_chunk
+   on one 500 kb chunk of phase 7's fixture (CHUNK_API_SNP), with
+   dedup_transfer on (K3 on the chunk wire) and off (K5), and
+   indel_caller.call_indel_chunk on one 100 kb chunk of phase 5's
+   (CHUNK_API_INDEL; K1, K2, K4), each on cuda with the counters reset
+   just before and read just after, and on cpu; the cuda lines against
+   the cpu lines by compare_records' rules (compare_lines).
 
 Then one JSON line with every kernel's launches (on the main path's
 --mode all --cpu N run; each path's own under launches_by_path), error
@@ -333,6 +346,16 @@ TRAIN_EPOCHS = 3
 STEP_REPS = 20
 ENTRY_REPS = 10
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+# phase 17: the bench tool's fixture and run (half a megabase at 30x with
+# the homopolymer profile, --mode all --cpu 4), and the one-chunk entry
+# points' chunks: the second 500 kb chunk of phase 7's contig, and the
+# second 100 kb chunk of phase 5's (as the CLI cuts both)
+E2E_ARGS = ["--mb", "0.5", "--depth", "30", "--cpu", "4", "--hp_profile"]
+E2E_TIMEOUT_S = 300
+CHUNK_API_SNP = {"chrom": "chr_t", "start": 500_001, "end": 1_000_001,
+                 "ploidy": "diploid"}
+CHUNK_API_INDEL = {"chrom": "chr_t", "start": 100_001, "end": 200_001,
+                   "ploidy": "diploid"}
 
 
 def emit(obj):
@@ -826,9 +849,20 @@ def compare_records(a, b, kind, by_contig=False):
     ra, rb = _records(a), _records(b)
     if by_contig:
         ra, rb = (sorted(r, key=lambda x: x[0]) for r in (ra, rb))
+    return _compare_fields(ra, rb, kind, os.path.basename(a))
+
+
+def compare_lines(a, b, kind, label):
+    """compare_records on two lists of VCF body lines (call_chunk's and
+    call_indel_chunk's output)."""
+    split = lambda lines: [l.rstrip("\n").split("\t") for l in lines]
+    return _compare_fields(split(a), split(b), kind, label)
+
+
+def _compare_fields(ra, rb, kind, label):
     if len(ra) != len(rb):
         fail("%s: cuda VCF has %d records, cpu VCF %d"
-             % (os.path.basename(a), len(ra), len(rb)))
+             % (label, len(ra), len(rb)))
     diffs = []
     for x, y in zip(ra, rb):
         snp = kind == "snp" or (kind == "any" and "FQ=" in x[7])
@@ -891,7 +925,7 @@ def phase_slice(K, tmp):
           "cpu_timers_s": runs["cpu"][3]["timers_s"], **counts})
     emit({"phase": "slice_profile", **prof})
     emit({"phase": "slice_profile_nw_kernels", **kern})
-    return counts
+    return counts, fasta_p, bam_p
 
 
 def profile_slice(cli, argv, kernel_names):
@@ -2984,6 +3018,123 @@ def phase_train(tmp):
     return counts, entry_counts
 
 
+def phase_tools_api(tmp, snp_fasta, snp_bam, indel_fasta, indel_bam):
+    """Phase 17 (see the module docstring): the bench tool on cuda and
+    cpu, then the one-chunk entry points. Returns the counters of the
+    entry points' cuda runs by path."""
+    import torch
+
+    from nanocaller_tpu_torch.align import nw_kernels as K
+    from nanocaller_tpu_torch.config import Config
+    from nanocaller_tpu_torch.indel_caller import (IndelCallerState,
+                                                   call_indel_chunk)
+    from nanocaller_tpu_torch.io.bam import BamReader
+    from nanocaller_tpu_torch.io.fasta import FastaFile
+    from nanocaller_tpu_torch.pileup import snp_dense as K5
+    from nanocaller_tpu_torch.pileup import snp_pileup as K3
+    from nanocaller_tpu_torch.snp_caller import SnpCallerState, call_chunk
+
+    t_phase = time.perf_counter()
+    # (a) the bench tool, cuda then cpu
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        wd = os.path.join(tmp, "e2e_" + dev)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "nanocaller_tpu_torch.tools.bench_e2e",
+             *E2E_ARGS, "--device", dev, "--workdir", wd],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+            capture_output=True, text=True, timeout=E2E_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            fail("bench_e2e --device %s failed (rc %d): %s"
+                 % (dev, res.returncode, (res.stdout + res.stderr)[-3000:]))
+        runs[dev] = (wd, json.loads(res.stdout.strip().splitlines()[-1]),
+                     wall)
+    for name in ("ref.fa", "reads.bam", "truth.vcf.gz"):
+        with open(os.path.join(runs["cuda"][0], name), "rb") as fa, \
+                open(os.path.join(runs["cpu"][0], name), "rb") as fb:
+            if fa.read() != fb.read():
+                fail("bench_e2e's two fixtures differ in %s" % name)
+    vcf = lambda dev, name: os.path.join(
+        runs[dev][0], "out", "v.%s.vcf.gz" % name if name else "v.vcf.gz")
+    cases, records = [], {}
+    for name, kind in DIST_VCFS:
+        records[name or "final"], diffs = compare_records(
+            vcf("cuda", name), vcf("cpu", name), kind)
+        cases += [dict(d, vcf=name or "final") for d in diffs]
+    for d in cases:
+        emit({"phase": "tools_bench_e2e_rounding_case", **d})
+    out = runs["cuda"][1]
+    if not (out["results"]["snp"]["f1"] or 0) > 0.5:
+        fail("bench_e2e on cuda: SNP F1 %s" % out["results"]["snp"])
+    emit({"phase": "tools_bench_e2e", "nvidia_smi": _smi_line(),
+          "argv": E2E_ARGS, "records": records,
+          "rounding_cases": len(cases),
+          **{dev: {"tool_wall_s": wall, "cli_wall_s": o["wall_s"],
+                   "stages": o["stages"], "counts": o["counts"],
+                   "rates": o["rates"], "results": o["results"]}
+             for dev, (_wd, o, wall) in runs.items()}})
+
+    # (b) the one-chunk entry points, cuda then cpu
+    def reset():
+        K.reset_counters()
+        K3.reset_counters()
+        K5.reset_counters()
+
+    def counts():
+        return {**{k: v for k, v in kernel_counts(K, K3, K5).items()
+                   if k != "pairs"}, "chunk_wire": K3.BY_WIRE["chunk"]}
+
+    snp_states = {dev: SnpCallerState.create("ONT-HG002", device=dev)
+                  for dev in ("cuda", "cpu")}
+    indel_states = {dev: IndelCallerState.create("ONT-HG002", device=dev)
+                    for dev in ("cuda", "cpu")}
+    paths = {}
+    cases = (("chunk_api_snp", snp_fasta, snp_bam, CHUNK_API_SNP, True),
+             ("chunk_api_snp_dense", snp_fasta, snp_bam, CHUNK_API_SNP,
+              False),
+             ("chunk_api_indel", indel_fasta, indel_bam, CHUNK_API_INDEL,
+              True))
+    for path, fasta_p, bam_p, chunk, dedup in cases:
+        lines, walls = {}, {}
+        for dev in ("cuda", "cpu"):
+            cfg = Config(bam=bam_p, ref=fasta_p, device=dev,
+                         dedup_transfer=dedup)
+            args = (BamReader(bam_p), FastaFile(fasta_p), chunk, cfg)
+            reset()
+            t0 = time.perf_counter()
+            if path == "chunk_api_indel":
+                lines[dev] = call_indel_chunk(indel_states[dev], *args)
+            else:
+                lines[dev] = call_chunk(snp_states[dev], *args)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                paths[path] = counts()
+            walls[dev] = time.perf_counter() - t0
+        c = paths[path]
+        need = {"chunk_api_snp": ("chunk_wire",),
+                "chunk_api_snp_dense": ("SNP_DENSE_LAUNCHES",),
+                "chunk_api_indel": ("NW_TB_LAUNCHES", "NW_WALK_LAUNCHES",
+                                    "NW_CIGAR_LAUNCHES")}[path]
+        if min(c[k] for k in need) < 1:
+            fail("%s launched no %s: %s" % (path, need, c))
+        if path == "chunk_api_snp_dense" and c["SNP_PILEUP_LAUNCHES"]:
+            fail("the dense call_chunk launched K3: %s" % c)
+        kind = "indel" if path == "chunk_api_indel" else "snp"
+        n, diffs = compare_lines(lines["cuda"], lines["cpu"], kind, path)
+        if n < 10:
+            fail("%s called %d records" % (path, n))
+        for d in diffs:
+            emit({"phase": "tools_api_rounding_case", "path": path, **d})
+        emit({"phase": "tools_api", "path": path, "chunk": chunk,
+              "records": n, "rounding_cases": len(diffs),
+              "cuda_s": walls["cuda"], "cpu_s": walls["cpu"], **c})
+    emit({"phase": "tools_api_summary",
+          "phase_s": time.perf_counter() - t_phase})
+    return paths
+
+
 def main():
     import torch
 
@@ -3021,7 +3172,7 @@ def main():
     rows = phase_kernels(K, rng)
     phase_models()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        counts = phase_slice(K, tmp)
+        counts, indel_fasta, indel_bam = phase_slice(K, tmp)
         phase_snp_models()
         snp_counts, fasta_p, bam_p = phase_snp_slice(tmp)
         k3_rows = phase_k3(fasta_p, bam_p,
@@ -3035,6 +3186,8 @@ def main():
             tmp, fasta_p, bam_p, cut_fasta, cut_bam)
         dist_counts = phase_dist(tmp, dag_fasta, dag_bam, cut_fasta, cut_bam)
         train_counts, entry_counts = phase_train(tmp)
+        api_counts = phase_tools_api(tmp, fasta_p, bam_p, indel_fasta,
+                                     indel_bam)
 
     def pick(phase):
         return next(r for r in rows if r["phase"] == phase and
@@ -3046,6 +3199,12 @@ def main():
     k5_rows = [r for r in rows if r["phase"] == "K5_snp_dense_pileup"] \
         + a2b_k5_rows
     k3 = next(r for r in k3_rows if r["inputs"].startswith("main_group1"))
+
+    def api_launches(key):
+        # phase 17(b)'s cuda runs: call_chunk (dedup_transfer on; K5's
+        # row takes its dense run) and call_indel_chunk
+        return {path: api_counts[path][key]
+                for path in ("chunk_api_snp", "chunk_api_indel")}
 
     def max_err(phase, rows=rows):
         return max(r["max_abs_err"] for r in rows if r["phase"] == phase)
@@ -3061,7 +3220,8 @@ def main():
                               "all_ccs": ccs_counts["NW_TB_LAUNCHES"],
                               "all_cpuN_2proc": dist_counts["NW_TB_LAUNCHES"],
                               "train_indel_features":
-                                  train_counts["NW_TB_LAUNCHES"]},
+                                  train_counts["NW_TB_LAUNCHES"],
+                              **api_launches("NW_TB_LAUNCHES")},
          "max_abs_err": max_err("K1_nw_tb"),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -3076,7 +3236,8 @@ def main():
                               "all_ccs": ccs_counts["NW_WALK_LAUNCHES"],
                               "all_cpuN_2proc": dist_counts["NW_WALK_LAUNCHES"],
                               "train_indel_features":
-                                  train_counts["NW_WALK_LAUNCHES"]},
+                                  train_counts["NW_WALK_LAUNCHES"],
+                              **api_launches("NW_WALK_LAUNCHES")},
          "max_abs_err": max_err("K2_nw_walk"),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -3091,7 +3252,8 @@ def main():
                               "all_ccs": ccs_counts["NW_CIGAR_LAUNCHES"],
                               "all_cpuN_2proc": dist_counts["NW_CIGAR_LAUNCHES"],
                               "train_indel_features":
-                                  train_counts["NW_CIGAR_LAUNCHES"]},
+                                  train_counts["NW_CIGAR_LAUNCHES"],
+                              **api_launches("NW_CIGAR_LAUNCHES")},
          "max_abs_err": max_err("K4_nw_cigar"),
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
@@ -3107,6 +3269,7 @@ def main():
                               "all_cpuN_2proc":
                                   dist_counts["SNP_PILEUP_LAUNCHES"],
                               "entry": entry_counts["SNP_PILEUP_LAUNCHES"],
+                              **api_launches("SNP_PILEUP_LAUNCHES"),
                               **{"a2b_%s_%s_wire" % (path, wire):
                                  c["k3_" + wire]
                                  for path, c in a2b_counts.items()
@@ -3123,7 +3286,11 @@ def main():
          "launches": a2b_counts["snps_dense"]["k5"],
          "launches_by_path": {
              **{"a2b_" + path: c["k5"] for path, c in a2b_counts.items()},
-             "all_cpuN_2proc": dist_counts["SNP_DENSE_LAUNCHES"]},
+             "all_cpuN_2proc": dist_counts["SNP_DENSE_LAUNCHES"],
+             "chunk_api_snp":
+                 api_counts["chunk_api_snp_dense"]["SNP_DENSE_LAUNCHES"],
+             "chunk_api_indel":
+                 api_counts["chunk_api_indel"]["SNP_DENSE_LAUNCHES"]},
          "max_abs_err": max_err("K5_snp_dense_pileup", k5_rows),
          "ms": k5["ms"], "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],

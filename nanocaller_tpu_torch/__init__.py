@@ -11,7 +11,8 @@ host work runs in feature workers that never import torch
 It trains both models (train/, with the training CLIs
 `python -m nanocaller_tpu_torch.train.train_snp|train_indel`), runs the
 SNP train step sharded over processes (runtime/sharding.py) and has the
-JAX package's entry/dryrun module (entry.py).
+JAX package's entry/dryrun module (entry.py) and user tools
+(`python -m nanocaller_tpu_torch.tools.<name>`, tools/).
 """
 
 __version__ = "0.1.0"

@@ -27,7 +27,8 @@ from .align.nw import nw_align
 from .io.vcf import VcfRecord, standard_indel_header, write_sorted
 from .models import (HaploidIndelModel, IndelModel, load_model,
                      torch_state_dict_from_params)
-from .pileup.indel_features import HaploidIndelBatch, IndelBatch
+from .pileup.indel_features import (HaploidIndelBatch, IndelBatch,
+                                    get_indel_candidates)
 from .runtime import sharding
 from .runtime.device import resolve_device
 
@@ -347,6 +348,26 @@ def decompose_and_filter(records, contig_rank=None):
     rank = contig_rank or {}
     out.sort(key=lambda r: (rank.get(r.chrom, 0), r.pos))
     return out
+
+
+def call_indel_chunk(state, bam, fasta, chunk, cfg, exclude=None, rw=None):
+    """Feature-gen + inference + decode for one chunk → VCF body lines,
+    on the state's device; its alignments go through K1, K2 and K4 there
+    (their plain twins on the CPU)."""
+    ploidy = chunk.get("ploidy", "diploid")
+    batch = get_indel_candidates(
+        bam, fasta, chunk, seq_type=cfg.sequencing, mincov=cfg.mincov,
+        maxcov=cfg.maxcov, ins_t=cfg.ins_threshold, del_t=cfg.del_threshold,
+        win_size=cfg.win_size, small_win_size=cfg.small_win_size,
+        impute_indel_phase=cfg.impute_indel_phase, exclude=exclude,
+        ploidy=ploidy, rw=rw, device=state.device)
+    if len(batch) == 0:
+        return []
+    if ploidy == "haploid":
+        probs = infer_haploid_indel_batch(state, batch)
+        return decode_haploid_indels(batch, probs)
+    probs = infer_indel_batch(state, batch)
+    return decode_diploid_indels(batch, probs)
 
 
 def write_indel_vcf(cfg, contigs, chunk_lines, out_dir):

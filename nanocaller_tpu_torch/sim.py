@@ -2,10 +2,12 @@
 
 Generates a reference FASTA plus a coordinate-sorted, indexed BAM with
 planted SNPs and indels on two haplotypes, optional HP/PS haplotags, and
-configurable substitution + sequencing-indel error rates — entirely with
-the port's I/O stack. A copy of the part of nanocaller_tpu/sim.py that
-chip_smoke.py needs to write its fixtures (same draws from the same
-seed), with the port's own fixture writers.
+configurable substitution, sequencing-indel and homopolymer-slip error
+rates — entirely with the port's I/O stack. A copy of
+nanocaller_tpu/sim.py (same draws from the same seed, so the same
+FASTA, BAM and truth VCF bytes), with the port's own fixture writers
+for chip_smoke.py and the kernels' edge inputs; the simulate tool
+(nanocaller_tpu_torch.tools.simulate) drives it.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ def make_diploid_readset(
     read_len=800,
     error_rate=0.0,
     indel_error_rate=0.0,
+    hp_slip_rate=0.0,
     contig_start=0,
 ):
     """Simulate reads from two haplotypes of one contig.
@@ -146,6 +149,12 @@ def make_diploid_readset(
             # split M runs at random points into M-I-M / M-D-M
             seq, cigar = _inject_indel_errors(rng, seq, cigar,
                                               indel_error_rate)
+        if hp_slip_rate > 0:
+            # length-dependent homopolymer slips — where ONT chemistry
+            # actually fails (the reference's published indel F1 drops
+            # from 0.82 outside homopolymers to 0.54 whole-genome,
+            # docs/ONT_Case_Study.md:249-263)
+            seq, cigar = _inject_hp_slips(rng, seq, cigar, hp_slip_rate)
         reads.append(("read_%04d" % i, contig_start + start, seq, cigar, hap))
     return reads
 
@@ -202,6 +211,64 @@ def _inject_indel_errors(rng, seq, cigar, rate):
         else:
             merged.append((op, l))
     return "".join(out_seq), merged
+
+
+def _inject_hp_slips(rng, seq, cigar, rate):
+    """Length-dependent homopolymer slip errors inside M runs.
+
+    For each homopolymer run of length r >= 4 within an aligned M
+    segment, with probability min(0.5, rate*(r-3)) the polymerase
+    "slips": one base of the run is inserted (M..M I1 M..) or deleted
+    (M..M D1 M..) at the run's end, 50/50. Models the ONT error mode
+    behind the reference's homopolymer indel weakness."""
+    out_cigar = []
+    out_seq = []
+    qi = 0
+
+    def push(op, ln):
+        if ln <= 0:
+            return
+        if out_cigar and out_cigar[-1][0] == op:
+            out_cigar[-1] = (op, out_cigar[-1][1] + ln)
+        else:
+            out_cigar.append((op, ln))
+
+    for op, l in cigar:
+        if op not in ("M", "I"):
+            push(op, l)
+            continue
+        frag = seq[qi : qi + l]
+        qi += l
+        if op == "I" or l < 4:
+            push(op, l)
+            out_seq.append(frag)
+            continue
+        # homopolymer runs inside this M fragment
+        arr = np.frombuffer(frag.encode(), dtype=np.uint8)
+        bounds = np.concatenate(
+            [[0], np.flatnonzero(arr[1:] != arr[:-1]) + 1, [l]])
+        prev = 0
+        for k in range(len(bounds) - 1):
+            a, b = int(bounds[k]), int(bounds[k + 1])
+            r = b - a
+            if r < 4 or b >= l:  # keep slips strictly inside the segment
+                continue
+            if rng.random() >= min(0.5, rate * (r - 3)):
+                continue
+            if rng.integers(2):  # expansion: extra run base inserted
+                push("M", b - prev)
+                out_seq.append(frag[prev:b])
+                push("I", 1)
+                out_seq.append(frag[a])
+                prev = b
+            else:  # contraction: last run base dropped from the read
+                push("M", b - 1 - prev)
+                out_seq.append(frag[prev : b - 1])
+                push("D", 1)
+                prev = b
+        push("M", l - prev)
+        out_seq.append(frag[prev:])
+    return "".join(out_seq), out_cigar
 
 
 _CIGAR_OP_NUM = {"M": 0, "I": 1, "D": 2, "N": 3, "S": 4, "H": 5, "P": 6, "=": 7, "X": 8}
@@ -288,6 +355,35 @@ def write_truth_vcf_multi(path, per_contig, sample="TRUTH"):
             for r in recs:
                 w.write(r)
     return path
+
+
+def make_fixture(tmpdir, seed=7, L=6000, depth=30, read_len=800,
+                 snps=None, indels=None, contig="chr_t", error_rate=0.0,
+                 tag_haplotypes=False):
+    """Write a FASTA + BAM pair into the directory `tmpdir` (a str or a
+    pathlib.Path); returns (fasta_path, bam_path, ref_seq, snps)."""
+    import os
+
+    from .io.fasta import write_fasta
+
+    rng = np.random.default_rng(seed)
+    ref_seq = random_seq(rng, L)
+    if snps is None:
+        snps = []
+        for pos in range(500, L - 500, 997):
+            ref_b = ref_seq[pos]
+            alt = BASES[(BASES.index(ref_b) + 1) % 4]
+            gt = ("het1", "het2", "hom")[pos % 3]
+            snps.append((pos, alt, gt))
+    indels = indels or []
+    reads = make_diploid_readset(
+        rng, ref_seq, snps=snps, indels=indels, depth=depth,
+        read_len=read_len, error_rate=error_rate)
+    fasta_path = os.path.join(str(tmpdir), "ref.fa")
+    write_fasta(fasta_path, {contig: ref_seq})
+    bam_path = os.path.join(str(tmpdir), "reads.bam")
+    write_bam(bam_path, contig, L, reads, tag_haplotypes=tag_haplotypes)
+    return fasta_path, bam_path, ref_seq, snps
 
 
 def _plant(ref, snp_every, indel_every, hom_only=False):

@@ -43,7 +43,8 @@ from .models import (HaploidSNPModel, SNPModel, load_model,
                      torch_state_dict_from_params)
 from .models.registry import HAPLOID_TRAIN_COVERAGE
 from .pileup.snp_dense import snp_dense_pileup
-from .pileup.snp_features import SnpChunkFeatures, SnpGroupFeatures
+from .pileup.snp_features import (SnpChunkFeatures, SnpGroupFeatures,
+                                  get_snp_candidates, get_snp_chunk_features)
 from .pileup.snp_pileup import chunk_wire, group_wire, site_depth, snp_pileup
 from .runtime import sharding
 from .runtime.chunker import group_adjacent_chunks
@@ -434,6 +435,27 @@ def decode_haploid(batch, probs):
             % (batch.contig, pos1, NUM_TO_BASE[ref], NUM_TO_BASE[pred], qual,
                filt, info, "1/1", int(batch.dp[j]), batch.freq[j]))
     return lines
+
+
+def call_chunk(state, bam, fasta, chunk, cfg, exclude=None):
+    """Feature-gen + inference + decode for one chunk → VCF body lines,
+    on the state's device: the chunk's SnpChunkFeatures (K3 on its
+    chunk wire), or with cfg.dedup_transfer off its dense SnpBatch
+    (K5)."""
+    builder = get_snp_chunk_features \
+        if getattr(cfg, "dedup_transfer", True) else get_snp_candidates
+    ploidy = chunk.get("ploidy", "diploid")
+    batch = builder(
+        bam, fasta, chunk,
+        seq_type=cfg.sequencing, mincov=cfg.mincov, maxcov=cfg.maxcov,
+        min_allele_freq=cfg.min_allele_freq, min_nbr_sites=cfg.min_nbr_sites,
+        threshold=cfg.threshold, ploidy=ploidy, exclude=exclude)
+    if len(batch) == 0:
+        return []
+    probs = infer_snp_any(state, batch, cfg, ploidy)
+    if ploidy == "haploid":
+        return decode_haploid(batch, probs)
+    return decode_diploid(batch, probs)
 
 
 def _group_adjacent(ordered_chunks, todo, cfg):

@@ -23,7 +23,9 @@ worker; two replicas on the card (bit-identical probabilities, one K3 or
 K5 launch a cohort and replica) and two `--num_processes 2` processes
 on it; one train step of each model cuda against cpu (and twice on the
 card, bit-identical), and the sharded SNP step at world size 1 on NCCL
-against the unsharded step, bit for bit. Skips without a GPU.
+against the unsharded step, bit for bit; the one-chunk entry points
+call_chunk (K3 on the chunk wire, or K5) and call_indel_chunk (K1, K2,
+K4) on cuda against cpu. Skips without a GPU.
 
 Imports neither jax nor the JAX package, so that it also runs where only
 the port is installed: `python -m pytest --noconftest tests/test_torch_gpu.py`.
@@ -833,3 +835,72 @@ def test_sharded_step_world_one_on_nccl():
     assert chip_smoke.steps_equal(
         (out["loss"], out["grads"], out["params"]),
         chip_smoke.one_step("snp", state, batch, "cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ploidy,dedup", [("diploid", True),
+                                          ("diploid", False),
+                                          ("haploid", True)])
+def test_call_chunk_on_card(tmp_path, ploidy, dedup):
+    """snp_caller.call_chunk on cuda against cpu by chip_smoke's record
+    rules: K3 on the chunk wire launches with dedup_transfer on, K5 with
+    it off, and not the other."""
+    _need_gpu()
+    import chip_smoke
+    from nanocaller_tpu_torch.config import Config
+    from nanocaller_tpu_torch.sim import make_fixture
+    from nanocaller_tpu_torch.snp_caller import call_chunk
+
+    fa, bam_p, _, _ = make_fixture(tmp_path, seed=17, L=40000, depth=30,
+                                   read_len=2000, error_rate=0.03)
+    chunk = {"chrom": "chr_t", "start": 5001, "end": 35000,
+             "ploidy": ploidy}
+    lines = {}
+    for dev in ("cuda", "cpu"):
+        cfg = Config(bam=bam_p, ref=fa, device=dev, dedup_transfer=dedup)
+        state = SnpCallerState.create("ONT-HG002", device=dev)
+        K3.reset_counters()
+        K5.reset_counters()
+        lines[dev] = call_chunk(state, BamReader(bam_p), FastaFile(fa),
+                                chunk, cfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            k3, k5 = K3.BY_WIRE["chunk"], K5.SNP_DENSE_LAUNCHES
+            assert (k3 > 0, k5 > 0) == (dedup, not dedup), (k3, k5)
+    assert len(lines["cuda"]) > 10
+    chip_smoke.compare_lines(lines["cuda"], lines["cpu"], "snp", "call_chunk")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ploidy", ["diploid", "haploid"])
+def test_call_indel_chunk_on_card(tmp_path, ploidy):
+    """indel_caller.call_indel_chunk on cuda against cpu by chip_smoke's
+    record rules, its alignments through K1, K2 and K4."""
+    _need_gpu()
+    import chip_smoke
+    from nanocaller_tpu_torch.config import Config
+    from nanocaller_tpu_torch.indel_caller import (IndelCallerState,
+                                                   call_indel_chunk)
+    from nanocaller_tpu_torch.sim import make_fixture
+
+    indels = [(p, "del", 2 + k % 5, ("het1", "het2", "hom")[k % 3])
+              if k % 2 else (p, "ins", "ACGTTG"[: 1 + k % 6],
+                             ("het1", "het2", "hom")[k % 3])
+              for k, p in enumerate(range(1500, 18500, 2000))]
+    fa, bam_p, _, _ = make_fixture(tmp_path, seed=19, L=20000, depth=30,
+                                   read_len=2000, snps=[], indels=indels,
+                                   error_rate=0.02, tag_haplotypes=True)
+    chunk = {"chrom": "chr_t", "start": 1, "end": 20000, "ploidy": ploidy}
+    lines = {}
+    for dev in ("cuda", "cpu"):
+        cfg = Config(bam=bam_p, ref=fa, device=dev)
+        state = IndelCallerState.create("ONT-HG002", device=dev)
+        K.reset_counters()
+        lines[dev] = call_indel_chunk(state, BamReader(bam_p), FastaFile(fa),
+                                      chunk, cfg)
+        if dev == "cuda":
+            assert min(K.NW_TB_LAUNCHES, K.NW_WALK_LAUNCHES,
+                       K.NW_CIGAR_LAUNCHES) >= 1
+    assert len(lines["cuda"]) >= 3
+    chip_smoke.compare_lines(lines["cuda"], lines["cpu"], "indel",
+                             "call_indel_chunk")

@@ -1,8 +1,9 @@
 """The port imports neither jax/flax/optax nor anything of nanocaller_tpu
 (its native library, CRAM and rANS modules, training modules, training
-CLIs and entry module included; the library builds from the port's own
-ncio.cpp), and device="cuda" without a GPU raises, on the calling path
-and on the training, sharded-step and entry paths."""
+CLIs, entry module and user tools included; the library builds from the
+port's own ncio.cpp), each user tool runs (`--help`) with them blocked,
+and device="cuda" without a GPU raises, on the calling path and on the
+training, sharded-step and entry paths."""
 
 import os
 import re
@@ -16,6 +17,8 @@ from torch_threads import _torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "nanocaller_tpu_torch")
+TOOLS = ("simulate", "vcf_compare", "ensemble", "snp_readnames",
+         "real_data_eval", "bench_e2e")
 
 
 _BLOCKED_IMPORTS = r"""
@@ -48,6 +51,7 @@ assert {"nanocaller_tpu_torch.phase.mec", "nanocaller_tpu_torch.phase.wmec",
         "nanocaller_tpu_torch.train.train_snp",
         "nanocaller_tpu_torch.train.train_indel",
         "nanocaller_tpu_torch.entry"} <= set(mods), mods
+assert {"nanocaller_tpu_torch.tools." + t for t in %r} <= set(mods), mods
 # the native library builds from the port's own source and loads
 from nanocaller_tpu_torch.io import native
 assert native.get_lib() is not None
@@ -57,7 +61,7 @@ assert callable(chip_smoke.main)
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCK]
 assert not bad, bad
 print("imported", len(mods))
-""" % (REPO, os.path.join(REPO, "nanocaller_tpu_torch", ""))
+""" % (REPO, TOOLS, os.path.join(REPO, "nanocaller_tpu_torch", ""))
 
 
 def test_imports_with_jax_blocked():
@@ -66,6 +70,37 @@ def test_imports_with_jax_blocked():
                          cwd=REPO)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 20
+
+
+_BLOCKED_TOOL = r"""
+import runpy, sys
+sys.path.insert(0, %r)
+BLOCK = ("jax", "jaxlib", "flax", "optax", "nanocaller_tpu")
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCK:
+            raise ImportError("blocked import of " + name)
+sys.meta_path.insert(0, Block())
+for name in BLOCK:
+    sys.modules.pop(name, None)
+tool = "nanocaller_tpu_torch.tools." + sys.argv[1]
+sys.argv = [tool, "--help"]
+try:
+    runpy.run_module(tool, run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+bad = [m for m in sys.modules if m.split(".")[0] in BLOCK]
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_tool_help_with_jax_blocked(tool):
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_TOOL % REPO, tool],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("usage:"), res.stdout
 
 
 _IMPORT_RE = re.compile(
