@@ -96,7 +96,9 @@ Phases, each printing one JSON line per case:
    (wall only), cuda --cpu N with the counters reset just before and
    read just after (K1, K2, K3 and K4 must all launch; launches and pairs
    by kernel and bucket printed, and the split of `indel.align_finish`:
-   encoding, K1/K2/K4 with their copies, MSA projection, allele round)
+   encoding, K1/K2/K4 with their copies, MSA projection, allele round;
+   the cpu --cpu N run's split too, with the CPU settings it ran with:
+   intra-op threads, OpenMP wait policy, cores)
    while nvidia-smi's compute apps and the workers' memory maps are
    polled (no process but this one may hold a CUDA context, and no
    worker may map libcuda), a second cuda --cpu N run (byte-identical
@@ -180,8 +182,9 @@ Phases, each printing one JSON line per case:
    simulate with --hp_profile, `--mode all --cpu 4` in a subprocess,
    vcf_compare) with --device cuda, then --device cpu on a fixture of the
    same bytes; its JSON line (walls, stage timers, F1) with the card's
-   name and power limit, the two runs' five VCFs held record for record
-   (compare_records) and the SNP F1 over 0.5; (b) snp_caller.call_chunk
+   name and power limit and the CPU settings each run's CLI ran with,
+   the two runs' five VCFs held record for record (compare_records)
+   and the SNP F1 over 0.5; (b) snp_caller.call_chunk
    on one 500 kb chunk of phase 7's fixture (CHUNK_API_SNP), with
    dedup_transfer on (K3 on the chunk wire) and off (K5), and
    indel_caller.call_indel_chunk on one 100 kb chunk of phase 5's
@@ -2107,11 +2110,17 @@ def phase_dag(tmp):
         fail("the cuda path called the host walk %d times and moved %d of "
              "K2's %d op streams" % (walk.walk_calls, walk.op_copies,
                                       walk.op_streams))
-    split = {k: v for k, v in metrics["timers_s"].items()
-             if k.startswith("indel.align_finish")}
-    emit({"phase": "dag_align_finish_split", "cpu": n, **split,
+    split = lambda m: {k: v for k, v in m["timers_s"].items()
+                       if k.startswith("indel.align_finish")}
+    emit({"phase": "dag_align_finish_split", "cpu": n, **split(metrics),
           "walk_calls": walk.walk_calls, "op_stream_copies": walk.op_copies,
           "op_streams": walk.op_streams})
+    # the cpu run: the same split (K1/K2/K4's plain twins under .kernels)
+    # and the CPU settings this process ran them with
+    cpu_metrics = runs["cpuN"][3]
+    emit({"phase": "dag_cpu_align_finish_split", "cpu": n,
+          "wall_s": runs["cpuN"][1], **split(cpu_metrics),
+          "cpu_settings": cpu_metrics["cpu_settings"]})
     if any(runs["cpuN"][2][k] for k in ("SNP_PILEUP_LAUNCHES",
                                         "NW_TB_LAUNCHES")):
         fail("the cpu run launched a CUDA kernel")
@@ -3068,9 +3077,14 @@ def phase_tools_api(tmp, snp_fasta, snp_bam, indel_fasta, indel_bam):
     out = runs["cuda"][1]
     if not (out["results"]["snp"]["f1"] or 0) > 0.5:
         fail("bench_e2e on cuda: SNP F1 %s" % out["results"]["snp"])
+    # the CPU settings each run's CLI process (bench_e2e's child) ran with
+    settings = {}
+    for dev, (wd, _o, _wall) in runs.items():
+        with open(os.path.join(wd, "out", "metrics.json")) as fh:
+            settings[dev] = json.load(fh)["cpu_settings"]
     emit({"phase": "tools_bench_e2e", "nvidia_smi": _smi_line(),
           "argv": E2E_ARGS, "records": records,
-          "rounding_cases": len(cases),
+          "rounding_cases": len(cases), "cpu_settings": settings,
           **{dev: {"tool_wall_s": wall, "cli_wall_s": o["wall_s"],
                    "stages": o["stages"], "counts": o["counts"],
                    "rates": o["rates"], "results": o["results"]}
@@ -3136,19 +3150,23 @@ def phase_tools_api(tmp, snp_fasta, snp_bam, indel_fasta, indel_bam):
 
 
 def main():
+    if not os.path.isdir(os.path.join(HERE, "nanocaller_tpu_torch", "csrc")):
+        print("chip_smoke: the nanocaller_tpu_torch package is not beside "
+              "this script", file=sys.stderr)
+        return 2
+    # the package before torch, as `python -m nanocaller_tpu_torch.cli`
+    # imports it: its OpenMP setting (OMP_WAIT_POLICY) then holds for the
+    # runs this process drives (phase 12's cpu --cpu N run among them)
+    sys.path.insert(0, HERE)
+    import nanocaller_tpu_torch  # noqa: F401
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "needs a CUDA GPU", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(HERE, "nanocaller_tpu_torch", "csrc")):
-        print("chip_smoke: the nanocaller_tpu_torch package is not beside "
-              "this script", file=sys.stderr)
-        return 2
     if sys.argv[1:2] == ["--cli-child"]:
         return cli_child(json.loads(sys.argv[2]))
-    sys.path.insert(0, HERE)
     from nanocaller_tpu_torch.align import nw_kernels as K
     from nanocaller_tpu_torch.io import native
     from nanocaller_tpu_torch.runtime.device import resolve_device

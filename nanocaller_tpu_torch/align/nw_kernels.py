@@ -194,49 +194,72 @@ def nw_tb(qcodes, rcodes, match, mismatch, gap_open, gap_extend):
 
 def nw_tb_reference(qcodes, rcodes, match, mismatch, gap_open, gap_extend):
     """Plain PyTorch twin of K1: the row loop of _batch_nw, with
-    torch.cummax for the prefix max. Same inputs and output."""
+    torch.cummax for the prefix max. Same inputs and output.
+
+    A row is eighteen whole-row ops, each written into a buffer made once
+    (`out=` or in place). On the CPU each such op on a large batch is one
+    parallel region of torch's intra-op pool, and every region ends at a
+    barrier of all its threads, so the loop keeps the regions few."""
     B, Q = qcodes.shape
     R = rcodes.shape[1]
     dev = qcodes.device
     go, ge = int(gap_open), int(gap_extend)
-    i32 = torch.int32
+    i32, u8 = torch.int32, torch.uint8
     jext = torch.arange(R + 1, dtype=i32, device=dev) * ge
+    jext_go = jext - go
+    # H: the previous row's scores; V: its vertical-gap scores, whose
+    # column 0 stays NEG; vnew, the view V's new row is written into
     H = torch.empty((B, R + 1), dtype=i32, device=dev)
     H[:, 0] = 0
     H[:, 1:] = -(go + jext[:-1])
     V = torch.full((B, R + 1), NEG, dtype=i32, device=dev)
-    tb = torch.empty((B, Q + 1, R + 1), dtype=torch.uint8, device=dev)
+    vnew = V[:, 1:]
+    tb = torch.empty((B, Q + 1, R + 1), dtype=u8, device=dev)
     tb[:, 0, 0] = 0
     if R >= 1:
         tb[:, 0, 1] = 2
         tb[:, 0, 2:] = 2 | 8
-    rj = rcodes.to(i32)
+    if Q >= 1:
+        tb[:, 1, 0] = 1
+        tb[:, 2:, 0] = 1 | 4
+    # a reference code >= 4 becomes a value no int8 query code takes, so
+    # that q == r holds exactly where (q == r) & (q < 4) does
+    rj = torch.where(rcodes < 4, rcodes.to(i32), 1 << 16)
     qc_all = qcodes.to(i32)
+    sub_match = torch.tensor(match, dtype=i32, device=dev)
+    sub_mismatch = torch.tensor(mismatch, dtype=i32, device=dev)
+    from_z = torch.tensor(2, dtype=u8, device=dev)
+    G, c, M = (torch.empty((B, R + 1), dtype=i32, device=dev)
+               for _ in range(3))
+    M_at = torch.empty((B, R + 1), dtype=torch.int64, device=dev)
+    diag, h_go, v_ge, Z = (torch.empty((B, R), dtype=i32, device=dev)
+                           for _ in range(4))
+    is_match, v_ext, came_v, came_z = (
+        torch.empty((B, R), dtype=torch.bool, device=dev) for _ in range(4))
+    z_ext = torch.zeros((B, R), dtype=torch.bool, device=dev)
     for i in range(1, Q + 1):
-        qc = qc_all[:, i - 1 : i]
-        is_match = (qc == rj) & (qc < 4)
-        sub = torch.where(is_match, match, mismatch).to(i32)
-        diag = H[:, :-1] + sub
-        vnew = torch.maximum(H[:, 1:] - go, V[:, 1:] - ge)
-        v_ext = (V[:, 1:] - ge) > (H[:, 1:] - go)
-        h0i = -(go + (i - 1) * ge)
-        G = torch.empty((B, R + 1), dtype=i32, device=dev)
-        G[:, 0] = h0i
-        G[:, 1:] = torch.maximum(diag, vnew)
-        came_v = vnew > diag
-        c = G - go + jext
-        M = torch.cummax(c, dim=1).values
-        Z = M[:, :-1] - jext[:-1]
-        z_ext = torch.zeros((B, R), dtype=torch.bool, device=dev)
-        z_ext[:, 1:] = M[:, :-2] > c[:, 1:-1]
-        came_z = Z > G[:, 1:]
-        H = torch.cat([G[:, :1], torch.maximum(G[:, 1:], Z)], dim=1)
-        V = torch.cat([V[:, :1], vnew], dim=1)
-        row = torch.where(came_z, 2, torch.where(came_v, 1, 0)).to(torch.uint8)
-        row |= v_ext.to(torch.uint8) << 2
-        row |= z_ext.to(torch.uint8) << 3
-        tb[:, i, 0] = (1 | 4) if i > 1 else 1
-        tb[:, i, 1:] = row
+        torch.eq(rj, qc_all[:, i - 1 : i], out=is_match)
+        torch.where(is_match, sub_match, sub_mismatch, out=diag)
+        diag += H[:, :-1]
+        torch.sub(H[:, 1:], go, out=h_go)
+        torch.sub(vnew, ge, out=v_ge)
+        torch.gt(v_ge, h_go, out=v_ext)
+        torch.maximum(h_go, v_ge, out=vnew)
+        torch.gt(vnew, diag, out=came_v)
+        G[:, 0] = -(go + (i - 1) * ge)
+        torch.maximum(diag, vnew, out=G[:, 1:])
+        torch.add(G, jext_go, out=c)
+        torch.cummax(c, 1, out=(M, M_at))
+        torch.sub(M[:, :-1], jext[:-1], out=Z)
+        torch.gt(M[:, :-2], c[:, 1:-1], out=z_ext[:, 1:])
+        torch.gt(Z, G[:, 1:], out=came_z)
+        H[:, 0] = G[:, 0]
+        torch.maximum(G[:, 1:], Z, out=H[:, 1:])
+        # the code: 2 from Z, else 1 from V, else 0; +4 V extended; +8 Z
+        row = tb[:, i, 1:]
+        torch.where(came_z, from_z, came_v.view(u8), out=row)
+        row.add_(v_ext.view(u8), alpha=4)
+        row.add_(z_ext.view(u8), alpha=8)
     return tb
 
 

@@ -79,6 +79,7 @@ from .pileup.indel_features import (finish_indel_jobs, get_indel_candidates,
 from .runtime import distributed
 from .runtime.chunker import (get_chunks, get_regions_list,
                               group_adjacent_chunks)
+from .runtime.device import cpu_settings
 from .runtime.metrics import Metrics, profile_region
 from .runtime.scheduler import Progress, RunManifest, feature_stream
 from .runtime.workers import (cfg_kwargs_for_workers,
@@ -120,6 +121,8 @@ def run(cfg: Config, progress=None):
     os.makedirs(cfg.output, exist_ok=True)
     cfg.dump(os.path.join(cfg.output, "args" + host_tag))
     metrics = Metrics()
+    # what this process's CPU ops (the NW twins on --device cpu) ran with
+    metrics.extra["cpu_settings"] = cpu_settings()
     owns_progress = False
     if progress is None and not cfg.suppress_progress:
         bar = Progress(None, "calling", suppress=cfg.suppress_progress)

@@ -8,6 +8,8 @@ carries on quietly on the CPU.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -32,3 +34,13 @@ def resolve_device(device="cuda"):
     elif dev.type != "cpu":
         raise ValueError("unsupported device %r (cuda or cpu)" % str(device))
     return dev
+
+
+def cpu_settings():
+    """What this process runs torch's CPU ops with: the intra-op thread
+    count, OpenMP's wait policy as the environment gives it (the package
+    sets PASSIVE unless the environment says otherwise; see its
+    docstring) and the cores the OS reports."""
+    return {"intra_op_threads": torch.get_num_threads(),
+            "omp_wait_policy": os.environ.get("OMP_WAIT_POLICY"),
+            "cpu_count": os.cpu_count()}

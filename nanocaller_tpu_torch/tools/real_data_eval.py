@@ -73,9 +73,18 @@ DEFAULT = ["ont_chr22_slice", "ont_chr22_snps", "ont_chr22_all"]
 
 
 def run_cli(cli_args, device):
-    """The port's CLI in a subprocess on `device`; returns its wall s."""
+    """The port's CLI in a subprocess on `device`; returns its wall s.
+
+    A caller that has loaded torch hands the child its intra-op thread
+    count (as OMP_NUM_THREADS, unless the environment sets that): a
+    caller told to use a few threads must not start a child that takes
+    every core. A tool run from a shell has not loaded torch, and its
+    child keeps the default pool."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    torch = sys.modules.get("torch")
+    if torch is not None and "OMP_NUM_THREADS" not in env:
+        env["OMP_NUM_THREADS"] = str(torch.get_num_threads())
     t0 = time.time()
     subprocess.run([sys.executable, "-m", "nanocaller_tpu_torch.cli",
                     *cli_args, "--device", device], check=True, env=env)
