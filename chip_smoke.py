@@ -190,7 +190,30 @@ Phases, each printing one JSON line per case:
    indel_caller.call_indel_chunk on one 100 kb chunk of phase 5's
    (CHUNK_API_INDEL; K1, K2, K4), each on cuda with the counters reset
    just before and read just after, and on cpu; the cuda lines against
-   the cpu lines by compare_records' rules (compare_lines).
+   the cpu lines by compare_records' rules (compare_lines);
+18. the stall watchdog (phase_watchdog) on phase 12's fixture at phase
+   15's --cpu: a cold `--cli-child` run's time to its first beat (a
+   heartbeat of its own) sets the window W (twice it, at least
+   WATCHDOG_MIN_S). (a) `--cli-child --mode all` under the port's
+   supervise in a process that loads no torch (`--supervise`), with a
+   hook in the child only: after the first SNP manifest entry a kernel
+   spins the card FREEZE_CYCLES and the host waits on it. The supervisor must kill that child once and the
+   --resume relaunch exit 0, its five VCFs held record for record
+   against phase 12's cuda run (byte equality with phase 15(a) printed);
+   while nvidia-smi and the maps of the supervisor and its children are
+   polled: the supervisor never maps libcuda or libtorch, at most one
+   child holds a CUDA context at a time, and the killed child's context
+   leaves nvidia-smi's list before the new child makes one. It prints
+   the heartbeat's age at the kill, the seconds from the kill to the new
+   child's CUDA context, the resumed run's wall against phase 12's and
+   phase 15(a)'s, and the resumed child's launches (the kernels line's
+   `all_cpuN_watchdog`). (b) two `python -m nanocaller_tpu_torch.cli
+   --watchdog W --num_processes 2` processes; process 1's child is
+   SIGKILLed once its first SNP chunk is in its manifest. Both
+   supervisors must end within (1 + retries) x (W + poll) + 60 s of the
+   kill (recovered, or a clean exit), never mapping libcuda or libtorch,
+   and a --resume relaunch of both must exit 0 with merged VCFs held
+   contig by contig against phase 15(a)'s.
 
 Then one JSON line with every kernel's launches (on the main path's
 --mode all --cpu N run; each path's own under launches_by_path), error
@@ -359,6 +382,16 @@ CHUNK_API_SNP = {"chrom": "chr_t", "start": 500_001, "end": 1_000_001,
                  "ploidy": "diploid"}
 CHUNK_API_INDEL = {"chrom": "chr_t", "start": 100_001, "end": 200_001,
                    "ploidy": "diploid"}
+# phase 18: the stall watchdog on phase 12's fixture at phase 15's --cpu.
+# (a)'s frozen child spins the card 2**40 cycles (about 9 minutes at the
+# H100's 1.98 GHz); the window is twice a cold child's time to its first
+# beat, and at least WATCHDOG_MIN_S s. (b)'s survivors may each wait out
+# (1 + retries) windows, so a longer one costs the phase four times over
+FREEZE_CYCLES = 2 ** 40
+WATCHDOG_MIN_S = 20
+# supervise's retries and poll, as --watchdog runs it
+WATCHDOG_RETRIES = 3
+WATCHDOG_POLL_S = 2.0
 
 
 def emit(obj):
@@ -2028,11 +2061,7 @@ class CudaContextWatch:
         mine = {o: _cmdline(o) for o in self.owners}
         while not self._stop.is_set():
             try:
-                out = subprocess.run(
-                    ["nvidia-smi", "--query-compute-apps=pid",
-                     "--format=csv,noheader"], capture_output=True,
-                    text=True, timeout=30).stdout
-                pids = {int(x) for x in out.split() if x.isdigit()}
+                pids = set(_smi_apps())
                 self.smi_pids |= pids
                 self.smi_polls_with_pids += bool(pids)
             except (OSError, subprocess.SubprocessError):
@@ -2228,7 +2257,7 @@ def phase_dag(tmp):
           "launches_k1": K.NW_TB_LAUNCHES,
           "copies_us": sum(us for k, (us, _) in dev.items()
                            if "Memcpy" in k or "Memset" in k)})
-    return counts, fasta_p, bam_p
+    return counts, fasta_p, bam_p, wall
 
 
 class HostWalkWatch:
@@ -2379,10 +2408,13 @@ def kernel_counts(K, K3, K5):
 
 
 def cli_child(argv):
-    """One process of phase 15(b), started by this script with
-    `--cli-child ARGV_JSON`: joins the process group, resets the
+    """One process of phase 15(b) or an attempt of phase 18(a), started by
+    this script with `--cli-child ARGV_JSON [--resume]` (a supervisor
+    appends --resume to a relaunch): joins the process group, resets the
     counters, runs the CLI and prints one JSON line of its counters and
-    times (spawn to a CUDA context, the Gloo connect, the run)."""
+    times (spawn to a CUDA context, the Gloo connect, the run; the clock
+    time of its CUDA context). With CHIP_SMOKE_FREEZE set, the run hangs
+    on the card once (_install_freeze)."""
     t_spawn = float(os.environ["CHIP_SMOKE_T_SPAWN"])
     sys.path.insert(0, HERE)
     import torch
@@ -2394,7 +2426,10 @@ def cli_child(argv):
 
     imported = time.time() - t_spawn
     torch.zeros(1, device="cuda")
-    startup = time.time() - t_spawn
+    ctx_at = time.time()
+    startup = ctx_at - t_spawn
+    if os.environ.get("CHIP_SMOKE_FREEZE"):
+        _install_freeze(os.environ["CHIP_SMOKE_FREEZE"])
     cfg = cli.config_from_args(argv)
     t0 = time.perf_counter()
     distributed.initialize(cfg.coordinator, cfg.num_processes,
@@ -2408,6 +2443,7 @@ def cli_child(argv):
     wall = time.perf_counter() - t0
     emit({"process_id": cfg.process_id, "import_s": imported,
           "startup_s": startup, "gloo_init_s": gloo, "run_s": wall,
+          "ctx_at": ctx_at, "resume": cfg.resume,
           "counts": kernel_counts(K, K3, K5)})
     return 0
 
@@ -2474,12 +2510,7 @@ def phase_dist(tmp, dag_fasta, dag_bam, cut_fasta, cut_bam):
     metrics_a, metrics_a_timers = metrics_a["counts"], metrics_a["timers_s"]
 
     # (b) two processes on this card, joined by Gloo
-    import socket
-
-    sock = socket.socket()
-    sock.bind(("127.0.0.1", 0))
-    coord = "localhost:%d" % sock.getsockname()[1]
-    sock.close()
+    coord = "localhost:%d" % _free_port()
     env = dict(os.environ, CHIP_SMOKE_T_SPAWN=repr(time.time()))
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
@@ -2584,7 +2615,7 @@ def phase_dist(tmp, dag_fasta, dag_bam, cut_fasta, cut_bam):
           "global_counts": metrics_a,
           "workers_seen": len(watch.workers),
           "nvidia_smi_compute_pids": sorted(watch.smi_pids), **dp})
-    return counts_b
+    return counts_b, wall_a
 
 
 def phase_dp(fasta_p, bam_p):
@@ -3149,6 +3180,364 @@ def phase_tools_api(tmp, snp_fasta, snp_bam, indel_fasta, indel_bam):
     return paths
 
 
+def _install_freeze(sentinel):
+    """Phase 18(a)'s hang, installed in a --cli-child process only: once
+    the first SNP chunk is in the run manifest, unless an earlier attempt
+    froze (the sentinel, which gets the clock time of the freeze), queue
+    a kernel that spins the card FREEZE_CYCLES and wait for it, as the
+    host waits at the copy-back of a kernel that never ends."""
+    import torch
+    from nanocaller_tpu_torch.runtime import scheduler
+
+    orig = scheduler.RunManifest.mark_done
+
+    def mark_done(self, stage, chunk, shard_path):
+        orig(self, stage, chunk, shard_path)
+        if stage == "snp" and not os.path.exists(sentinel):
+            with open(sentinel, "w") as fh:
+                fh.write(repr(time.time()))
+            torch.cuda._sleep(FREEZE_CYCLES)
+            torch.cuda.synchronize()
+
+    scheduler.RunManifest.mark_done = mark_done
+
+
+def supervise_child(window, heartbeat, argv_json):
+    """Phase 18(a)'s supervisor, started by this script with `--supervise
+    WINDOW HEARTBEAT ARGV_JSON`: the port's supervise, with --watchdog's
+    retries and poll, over `--cli-child ARGV_JSON`, in a process that
+    loads neither torch nor CUDA. Prints each log line with its clock
+    time, then one JSON line; exits with the supervisor's code."""
+    from nanocaller_tpu_torch.runtime.watchdog import supervise
+
+    rc = supervise([sys.executable, os.path.abspath(__file__),
+                    "--cli-child", argv_json], heartbeat, float(window),
+                   log=lambda m: emit({"watchdog_log": m, "at": time.time()}))
+    emit({"supervisor_rc": rc, "torch_loaded": "torch" in sys.modules,
+          "maps_libcuda": _maps_libcuda(os.getpid())})
+    return rc
+
+
+def _smi_apps():
+    """The PIDs nvidia-smi lists as holding a CUDA context, one a process
+    (in a container it may give every process the PID 1)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=30).stdout
+    return [int(x) for x in out.split() if x.isdigit()]
+
+
+def _free_port():
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def _kill_tree(pid):
+    """SIGKILL pid and every live process below it."""
+    import signal
+
+    for c in _child_pids(pid):
+        _kill_tree(c)
+    try:
+        os.kill(pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+
+
+def _wait_bounded(proc, deadline, what):
+    """proc's exit code, or fail (with proc's tree killed) when it has not
+    ended by the clock time `deadline`."""
+    try:
+        return proc.wait(timeout=max(0.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        _kill_tree(proc.pid)
+        proc.wait()
+        fail("%s did not end within its bound" % what)
+
+
+def _log_lines(path):
+    """The JSON lines of a log file, and its other lines."""
+    objs, other = [], []
+    with open(path) as fh:
+        for line in fh:
+            try:
+                obj = json.loads(line)
+            except ValueError:
+                other.append(line.rstrip("\n"))
+                continue
+            (objs if isinstance(obj, dict) else other).append(obj)
+    return objs, other
+
+
+class SupervisorWatch:
+    """Polls, on a thread, what phase 18 holds its supervisors to: the
+    compute apps nvidia-smi lists, with each poll's clock time (`smi`:
+    (time, PIDs)); the libraries of libcuda and libtorch that a
+    supervisor mapped at any poll (`supervisor_maps`, which must stay
+    empty); the supervisors' children in the order first seen; and the
+    most children that mapped libcuda (held a CUDA context) at one poll
+    (`most_owners`)."""
+
+    def __init__(self, supervisors, period=0.25):
+        import threading
+
+        self.supervisors, self.period = supervisors, period
+        self.smi, self.children, self.supervisor_maps = [], [], set()
+        self.most_owners = 0
+        self._stop = threading.Event()
+        self._th = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                self.smi.append((time.time(), _smi_apps()))
+            except (OSError, subprocess.SubprocessError):
+                pass
+            owners = 0
+            for sup in self.supervisors:
+                try:
+                    with open("/proc/%d/maps" % sup) as fh:
+                        maps = fh.read()
+                except OSError:
+                    maps = ""
+                self.supervisor_maps |= {lib for lib in ("libcuda",
+                                                         "libtorch")
+                                         if lib in maps}
+                for c in _child_pids(sup):
+                    if c not in self.children:
+                        self.children.append(c)
+                    owners += _maps_libcuda(c)
+            self.most_owners = max(self.most_owners, owners)
+            self._stop.wait(self.period)
+
+    def __enter__(self):
+        self._th.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._th.join()
+
+
+def _vcf_bytes(path):
+    with gzip.open(path) as fh:
+        return fh.read()
+
+
+def phase_watchdog(tmp, fasta_p, bam_p, dag_wall, dist_wall):
+    """Phase 18 (see the module docstring): (a) a real device stall under
+    the port's supervise, killed and resumed; (b) a dead Gloo peer under
+    --watchdog, then a --resume relaunch. Returns the counters of (a)'s
+    resumed child."""
+    import math
+    import re
+    import signal
+
+    t_phase = time.perf_counter()
+    path = lambda name: os.path.join(tmp, "wd_" + name)
+    vcf = lambda d: lambda name: os.path.join(
+        d, "smoke.%s.vcf.gz" % name if name else "smoke.vcf.gz")
+    me = os.path.abspath(__file__)
+
+    def argv(out, *extra):
+        return ["--bam", bam_p, "--ref", fasta_p, "--mode", "all", "--cpu",
+                str(DIST_CPU), "--haploid_X", "--device", "cuda",
+                "--output", out, "--prefix", "smoke", "--sample", "S",
+                "--suppress_progress_bar", *extra]
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("NC_TPU_HEARTBEAT", "NC_TPU_WATCHDOG_CHILD")}
+
+    # (a) a cold child's time to its first beat: a child with a heartbeat
+    # of its own, killed with its workers at that beat
+    probe_hb = path("probe.heartbeat")
+    t0 = time.time()
+    with open(path("probe.log"), "w") as log:
+        probe = subprocess.Popen(
+            [sys.executable, me, "--cli-child",
+             json.dumps(argv(path("probe")))],
+            env=dict(env, NC_TPU_HEARTBEAT=probe_hb,
+                     NC_TPU_WATCHDOG_CHILD="1",
+                     CHIP_SMOKE_T_SPAWN=repr(t0)),
+            stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+    try:
+        while not os.path.exists(probe_hb):
+            if probe.poll() is not None or time.time() - t0 > 300:
+                fail("the probe child made no beat (rc %s)" % probe.poll())
+            time.sleep(0.02)
+        first_beat = os.path.getmtime(probe_hb) - t0
+    finally:
+        try:
+            os.killpg(probe.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        probe.wait()
+    window = max(WATCHDOG_MIN_S, math.ceil(2 * first_beat))
+    emit({"phase": "watchdog_window", "first_beat_s": first_beat,
+          "window_s": window})
+
+    # (a) the supervised run, frozen on the card once
+    sentinel, log_a = path("froze"), path("a.log")
+    base = _smi_apps()
+    t_a = time.time()
+    with open(log_a, "w") as log:
+        sup = subprocess.Popen(
+            [sys.executable, me, "--supervise", str(window),
+             path("a.heartbeat"), json.dumps(argv(path("a")))],
+            env=dict(env, CHIP_SMOKE_FREEZE=sentinel,
+                     CHIP_SMOKE_T_SPAWN=repr(t_a)),
+            stdout=log, stderr=subprocess.STDOUT)
+    bound_a = (1 + WATCHDOG_RETRIES) * (window + WATCHDOG_POLL_S) + 120
+    with SupervisorWatch([sup.pid]) as watch_a:
+        rc = _wait_bounded(sup, t_a + bound_a, "phase 18(a)'s supervisor")
+    wall_a = time.time() - t_a
+    objs, other = _log_lines(log_a)
+    logs = [o for o in objs if "watchdog_log" in o]
+    kills = [o for o in logs if "killing the run" in o["watchdog_log"]]
+    children = [o for o in objs if "counts" in o]
+    summary = next((o for o in objs if "supervisor_rc" in o), {})
+    if rc != 0 or summary.get("supervisor_rc") != 0 or len(kills) != 1 \
+            or len(children) != 1 or not children[0]["resume"] \
+            or not os.path.exists(sentinel):
+        fail("phase 18(a): rc %s, log %s, children %s, froze %s: %s"
+             % (rc, logs, children, os.path.exists(sentinel),
+                "\n".join(map(str, other[-40:]))))
+    child, kill_at = children[0], kills[0]["at"]
+    with open(sentinel) as fh:
+        froze_at = float(fh.read())
+    if summary["torch_loaded"] or summary["maps_libcuda"] or \
+            watch_a.supervisor_maps:
+        fail("phase 18(a)'s supervisor loaded torch or CUDA: %s, %s"
+             % (summary, sorted(watch_a.supervisor_maps)))
+    if watch_a.most_owners > 1:
+        fail("two supervised children held a CUDA context at once")
+    # nvidia-smi: at most this process and one child at a time; the killed
+    # child's context gone before the new child made its own
+    frozen = watch_a.children[0]
+    counts_smi = [len(p) for _, p in watch_a.smi]
+    between = [len(p) for t, p in watch_a.smi if kill_at < t < child["ctx_at"]]
+    smi_left = bool(between) and min(between) <= len(base)
+    pids_real = any(frozen in p for t, p in watch_a.smi if t < kill_at)
+    if any(counts_smi) and (max(counts_smi) > len(base) + 1 or
+                            not smi_left):
+        fail("nvidia-smi listed %s compute apps (this process alone: %d; "
+             "between the kill and the new context: %s)"
+             % (sorted(set(counts_smi)), len(base), between))
+    if pids_real and any(frozen in p for t, p in watch_a.smi
+                         if t > child["ctx_at"]):
+        fail("the killed child %d stayed in nvidia-smi's list" % frozen)
+    cases_a = _held("watchdog_a", vcf(path("a")),
+                    vcf(os.path.join(tmp, "dag_cudaN")))
+    same_as_15a = [_vcf_bytes(vcf(path("a"))(name)) ==
+                   _vcf_bytes(vcf(os.path.join(tmp, "dist_a"))(name))
+                   for name, _ in DIST_VCFS]
+    age = re.search(r"no progress for (\d+)s", kills[0]["watchdog_log"])
+
+    # (b) two supervised processes; process 1's child dies mid-run
+    out_b = path("b")
+    coord = "localhost:%d" % _free_port()
+    cmd_b = lambda i, out, coord, *extra: [
+        sys.executable, "-m", "nanocaller_tpu_torch.cli",
+        *argv(out, "--coordinator", coord, "--num_processes", "2",
+              "--process_id", str(i), *extra)]
+    logs_b = [path("b%d.log" % i) for i in range(2)]
+    bound_b = (1 + WATCHDOG_RETRIES) * (window + WATCHDOG_POLL_S) + 60
+    t0 = time.time()
+    sups = []
+    for i in range(2):
+        with open(logs_b[i], "w") as log:
+            sups.append(subprocess.Popen(
+                cmd_b(i, out_b, coord, "--watchdog", str(window)),
+                cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT))
+    killed = None
+    try:
+        with SupervisorWatch([p.pid for p in sups]) as watch_b:
+            manifest = os.path.join(out_b, "run_manifest.host001.json")
+            while not os.path.exists(manifest):
+                if time.time() - t0 > DIST_TIMEOUT_S or \
+                        any(p.poll() is not None for p in sups):
+                    fail("phase 18(b): process 1 finished no SNP chunk")
+                time.sleep(0.05)
+            killed = next(iter(_child_pids(sups[1].pid)), None)
+            if killed is None:
+                fail("phase 18(b): process 1's supervisor has no child")
+            os.kill(killed, signal.SIGKILL)
+            kill_b = time.time()
+            rcs = [_wait_bounded(p, kill_b + bound_b,
+                                 "phase 18(b)'s supervisor %d" % i)
+                   for i, p in enumerate(sups)]
+            ends_b = time.time() - kill_b
+    finally:
+        for p in sups:
+            if p.poll() is None:
+                _kill_tree(p.pid)
+                p.wait()
+        if killed is not None:
+            try:  # the killed child's feature workers
+                os.killpg(killed, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+    if watch_b.supervisor_maps:
+        fail("a --watchdog supervisor mapped %s"
+             % sorted(watch_b.supervisor_maps))
+    wlog = []
+    for i in range(2):
+        with open(logs_b[i]) as fh:
+            wlog.append([l.strip() for l in fh if l.startswith("watchdog:")
+                         or "Error" in l][-8:])
+    # every process relaunched with --resume completes from its manifest
+    coord = "localhost:%d" % _free_port()
+    t0 = time.time()
+    relaunch = []
+    for i in range(2):
+        with open(path("b_resume%d.log" % i), "w") as log:
+            relaunch.append(subprocess.Popen(
+                cmd_b(i, out_b, coord, "--resume"), cwd=HERE, env=env,
+                stdout=log, stderr=subprocess.STDOUT))
+    for i, p in enumerate(relaunch):
+        if _wait_bounded(p, t0 + DIST_TIMEOUT_S,
+                         "phase 18(b)'s --resume process %d" % i) != 0:
+            with open(path("b_resume%d.log" % i)) as fh:
+                fail("phase 18(b): the --resume process %d failed: %s"
+                     % (i, fh.read()[-3000:]))
+    resume_b = time.time() - t0
+    cases_b = _held("watchdog_b", vcf(out_b),
+                    vcf(os.path.join(tmp, "dist_a")))
+    emit({"phase": "watchdog", "nvidia_smi": _smi_line(), "cpu": DIST_CPU,
+          "first_beat_s": first_beat, "window_s": window,
+          "a": {"supervisor_wall_s": wall_a, "bound_s": bound_a,
+                "log": [o["watchdog_log"] for o in logs],
+                "heartbeat_age_at_kill_s": int(age.group(1)),
+                "kill_after_freeze_s": kill_at - froze_at,
+                "freeze_after_start_s": froze_at - t_a,
+                "kill_to_cuda_context_s": child["ctx_at"] - kill_at,
+                "resumed_run_s": child["run_s"],
+                "phase12_cuda_cpuN_wall_s": dag_wall,
+                "phase15a_wall_s": dist_wall,
+                "resumed_launches": child["counts"],
+                "rounding_cases_vs_phase12": len(cases_a),
+                "bytes_equal_phase15a": same_as_15a,
+                "smi_apps_alone": len(base),
+                "smi_apps_most": max(counts_smi, default=None),
+                "smi_left_before_new_context": smi_left,
+                "smi_pids_are_processes": pids_real,
+                "most_device_owners": watch_a.most_owners,
+                "children": watch_a.children},
+          "b": {"outcome": "recovered" if rcs == [0, 0] else
+                "bounded exit", "rcs": rcs, "ends_after_kill_s": ends_b,
+                "bound_s": bound_b, "log": wlog,
+                "resume_wall_s": resume_b,
+                "rounding_cases_vs_phase15a": len(cases_b),
+                "supervisor_children": watch_b.children},
+          "phase_s": time.perf_counter() - t_phase})
+    return child["counts"]
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "nanocaller_tpu_torch", "csrc")):
         print("chip_smoke: the nanocaller_tpu_torch package is not beside "
@@ -3159,6 +3548,10 @@ def main():
     # runs this process drives (phase 12's cpu --cpu N run among them)
     sys.path.insert(0, HERE)
     import nanocaller_tpu_torch  # noqa: F401
+
+    if sys.argv[1:2] == ["--supervise"]:
+        # phase 18(a)'s supervisor: before torch, which it must not load
+        return supervise_child(*sys.argv[2:5])
     import torch
 
     if not torch.cuda.is_available():
@@ -3166,7 +3559,7 @@ def main():
               "needs a CUDA GPU", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--cli-child"]:
-        return cli_child(json.loads(sys.argv[2]))
+        return cli_child(json.loads(sys.argv[2]) + sys.argv[3:])
     from nanocaller_tpu_torch.align import nw_kernels as K
     from nanocaller_tpu_torch.io import native
     from nanocaller_tpu_torch.runtime.device import resolve_device
@@ -3198,14 +3591,17 @@ def main():
         all_counts = phase_all_slice(tmp)
         phase_a2a(tmp, fasta_p, bam_p)
         cut_fasta, cut_bam = phase_cram_all(tmp)
-        dag_counts, dag_fasta, dag_bam = phase_dag(tmp)
+        dag_counts, dag_fasta, dag_bam, dag_wall = phase_dag(tmp)
         ccs_counts = phase_ccs(tmp, cut_fasta, cut_bam)
         a2b_counts, a2b_k3_rows, a2b_k5_rows = phase_a2b(
             tmp, fasta_p, bam_p, cut_fasta, cut_bam)
-        dist_counts = phase_dist(tmp, dag_fasta, dag_bam, cut_fasta, cut_bam)
+        dist_counts, dist_wall = phase_dist(tmp, dag_fasta, dag_bam,
+                                            cut_fasta, cut_bam)
         train_counts, entry_counts = phase_train(tmp)
         api_counts = phase_tools_api(tmp, fasta_p, bam_p, indel_fasta,
                                      indel_bam)
+        watchdog_counts = phase_watchdog(tmp, dag_fasta, dag_bam, dag_wall,
+                                         dist_wall)
 
     def pick(phase):
         return next(r for r in rows if r["phase"] == phase and
@@ -3237,6 +3633,7 @@ def main():
                               "all_cpuN": dag_counts["NW_TB_LAUNCHES"],
                               "all_ccs": ccs_counts["NW_TB_LAUNCHES"],
                               "all_cpuN_2proc": dist_counts["NW_TB_LAUNCHES"],
+                              "all_cpuN_watchdog": watchdog_counts["NW_TB_LAUNCHES"],
                               "train_indel_features":
                                   train_counts["NW_TB_LAUNCHES"],
                               **api_launches("NW_TB_LAUNCHES")},
@@ -3253,6 +3650,7 @@ def main():
                               "all_cpuN": dag_counts["NW_WALK_LAUNCHES"],
                               "all_ccs": ccs_counts["NW_WALK_LAUNCHES"],
                               "all_cpuN_2proc": dist_counts["NW_WALK_LAUNCHES"],
+                              "all_cpuN_watchdog": watchdog_counts["NW_WALK_LAUNCHES"],
                               "train_indel_features":
                                   train_counts["NW_WALK_LAUNCHES"],
                               **api_launches("NW_WALK_LAUNCHES")},
@@ -3269,6 +3667,7 @@ def main():
                               "all_cpuN": dag_counts["NW_CIGAR_LAUNCHES"],
                               "all_ccs": ccs_counts["NW_CIGAR_LAUNCHES"],
                               "all_cpuN_2proc": dist_counts["NW_CIGAR_LAUNCHES"],
+                              "all_cpuN_watchdog": watchdog_counts["NW_CIGAR_LAUNCHES"],
                               "train_indel_features":
                                   train_counts["NW_CIGAR_LAUNCHES"],
                               **api_launches("NW_CIGAR_LAUNCHES")},
@@ -3286,6 +3685,8 @@ def main():
                               "all_ccs": ccs_counts["SNP_PILEUP_LAUNCHES"],
                               "all_cpuN_2proc":
                                   dist_counts["SNP_PILEUP_LAUNCHES"],
+                              "all_cpuN_watchdog":
+                                  watchdog_counts["SNP_PILEUP_LAUNCHES"],
                               "entry": entry_counts["SNP_PILEUP_LAUNCHES"],
                               **api_launches("SNP_PILEUP_LAUNCHES"),
                               **{"a2b_%s_%s_wire" % (path, wire):

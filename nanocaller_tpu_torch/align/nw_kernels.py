@@ -38,6 +38,8 @@ import tempfile
 
 import torch
 
+from ..runtime import watchdog
+
 NEG = -(1 << 28)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -86,7 +88,10 @@ def _nvcc():
 def build():
     """Compile the kernel sources (if their hash changed) and return the
     library path: one nvcc per source, all started together, then one
-    link into a .so."""
+    link into a .so. It beats a supervising --watchdog while nvcc runs
+    (a cold build takes tens of seconds). Each build works in a fresh
+    temporary directory and renames the library into place, so one
+    that a killed process left behind is never read."""
     h = hashlib.sha256()
     for src in SOURCES + HEADERS:
         with open(src, "rb") as fh:
@@ -105,11 +110,13 @@ def build():
                                    obj, src], stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for src, obj in zip(SOURCES, objs)]
-        results = [(p.communicate()[0], p.returncode) for p in procs]
+        results = [(watchdog.communicate(p)[0], p.returncode)
+                   for p in procs]
         so = os.path.join(tmp, "lib.so")
-        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so,
-                               *objs], capture_output=True, text=True)
-        results.append((link.stdout + link.stderr, link.returncode))
+        link = subprocess.Popen([nvcc, *NVCC_FLAGS, "-shared", "-o", so,
+                                 *objs], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        results.append((watchdog.communicate(link)[0], link.returncode))
         for out, rc in results:
             if rc != 0:
                 raise RuntimeError("nvcc failed (%d):\n%s" % (rc, out))

@@ -3,14 +3,16 @@
 
 The JAX CLI's flags (nanocaller_tpu/cli.py, argument-compatible with the
 reference `NanoCaller` script, NanoCaller:84-158, including preset
-semantics, NanoCaller:162-171) plus `--device cuda|cpu`. `--watchdog`
-(not ported) raises NotImplementedError (see caller.py).
+semantics, NanoCaller:162-171) plus `--device cuda|cpu`. With
+`--watchdog SECONDS` this process only supervises a child copy of the
+CLI (runtime/watchdog.py) and loads neither torch nor CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
 import datetime
+import os
 import sys
 import time
 
@@ -61,7 +63,12 @@ def build_parser():
     cfgg.add_argument("--num_processes", type=int, default=1)
     cfgg.add_argument("--process_id", type=int, default=0)
     cfgg.add_argument("--watchdog", type=int, default=0, metavar="SECONDS",
-                      help="stall supervision (not ported; must be 0)")
+                      help="stall supervision: run the CLI in a child "
+                           "process, kill it when it makes no progress "
+                           "for SECONDS (a hung kernel, a dead Gloo "
+                           "peer) and relaunch it with --resume. Choose "
+                           "SECONDS above the start-up and a cold "
+                           "kernel build; 0 disables.")
     cfgg.add_argument("--no_dedup_transfer", action="store_true",
                       help="the dense per-candidate SNP oracle path of "
                            "the JAX CLI (kernel K5)")
@@ -187,6 +194,26 @@ def config_from_args(argv=None):
 def main(argv=None):
     t0 = time.time()
     cfg = config_from_args(argv)
+    if cfg.watchdog > 0 and not os.environ.get("NC_TPU_WATCHDOG_CHILD"):
+        # stall supervision: re-exec self as a monitored child; a hung
+        # kernel cannot be interrupted in-process (runtime/watchdog). This
+        # process loads no torch, so it never holds a CUDA context
+        from .runtime.watchdog import wrap_cli
+
+        rc = wrap_cli(list(sys.argv[1:] if argv is None else argv),
+                      cfg.watchdog, cfg.output)
+        if rc != 0:
+            raise SystemExit(rc)
+        paths = {
+            "snps": "%s.snps.vcf.gz",
+            "phased_snps": "%s.snps.phased.vcf.gz",
+            "indels": "%s.indels.vcf.gz",
+            "final": "%s.vcf.gz",
+        }
+        return {k: p for k, p in
+                ((k, os.path.join(cfg.output, pat % cfg.prefix))
+                 for k, pat in paths.items())
+                if os.path.exists(p)}
     print("%s: Starting nanocaller-tpu-torch." % datetime.datetime.now(),
           flush=True)
     if cfg._merge_shards:

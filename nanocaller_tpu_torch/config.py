@@ -81,7 +81,8 @@ class Config:
     # default size; a CRAM artifact uses the CRAM codecs)
     phased_bam_compression: int = 1
     resume: bool = False  # reuse completed chunks from a prior run's manifest
-    # >0: stall supervision of the JAX CLI (not ported; must stay 0)
+    # >0: cli.main supervises a child run and resumes it after a stall
+    # of this many seconds (runtime/watchdog.py); run() ignores it
     watchdog: int = 0
     # multi-host / multi-process runs (later slice; must stay 1/0)
     num_shards: int = 1

@@ -29,7 +29,7 @@ from .models import (HaploidIndelModel, IndelModel, load_model,
                      torch_state_dict_from_params)
 from .pileup.indel_features import (HaploidIndelBatch, IndelBatch,
                                     get_indel_candidates)
-from .runtime import sharding
+from .runtime import sharding, watchdog
 from .runtime.device import resolve_device
 
 
@@ -87,6 +87,8 @@ def _run_stacked(state, haploid, x, batch_size):
     out = np.empty((len(x),) + tuple(parts[0][1].shape[1:]), np.float32)
     for lo, probs in parts:
         out[lo:lo + len(probs)] = probs.cpu().numpy()
+        # after the copy-back: a hung kernel stops the beats
+        watchdog.beat()
     return out
 
 

@@ -31,8 +31,11 @@ import hashlib
 import os
 import struct
 import subprocess
+import time
 
 import numpy as np
+
+from ...runtime import watchdog
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "ncio.cpp")
@@ -78,13 +81,21 @@ def build():
     """Compile ncio.cpp unless the library for its hash exists; returns
     the library path. Concurrent callers (test workers) serialise on a
     lock file; each compiles to a temp name of its own and renames it
-    into place, so no process ever loads a half-written library."""
+    into place, so no process ever loads a half-written library. It
+    beats a supervising --watchdog while g++ runs and while it waits on
+    another process's build (a cold build takes about 12 s)."""
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, "libncio.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+        while True:
+            try:
+                fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                break
+            except BlockingIOError:
+                watchdog.beat()
+                time.sleep(0.2)
         try:
             if os.path.exists(so):  # built while this process waited
                 return so
@@ -92,8 +103,10 @@ def build():
             errors = []
             for flags, libs in _LADDER:
                 cmd = ["g++", *_COMMON, *flags, _SRC, "-o", tmp, *libs]
-                res = subprocess.run(cmd, capture_output=True, text=True)
-                if res.returncode == 0:
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+                stderr = watchdog.communicate(proc)[1]
+                if proc.returncode == 0:
                     # a rung may link a library the loader cannot find
                     # (a libdeflate outside its search path): take the
                     # first one that also loads
@@ -105,7 +118,7 @@ def build():
                         continue
                     os.replace(tmp, so)
                     return so
-                errors.append("$ %s\n%s" % (" ".join(cmd), res.stderr))
+                errors.append("$ %s\n%s" % (" ".join(cmd), stderr))
             if os.path.exists(tmp):
                 os.remove(tmp)
             raise RuntimeError("building the native library failed:\n"

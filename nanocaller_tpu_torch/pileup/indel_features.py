@@ -41,6 +41,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..align.nw import nw_align
+from ..runtime import watchdog
 from .engine import ReadWindow, decode_reads, indel_deferred_decode
 
 REF_N_LUT = np.full(256, 0, dtype=np.int8)  # 1 = valid AGTC uppercase
@@ -788,6 +789,9 @@ def finish_indel_jobs(records, device="cuda", timers=None):
                            gap_open=MSA_GAP_OPEN, gap_extend=MSA_GAP_EXTEND,
                            device=device)
     flat = iter(aligner.align_many(pairs, packed=True))
+    # align_many has copied the runs back: K1/K2/K4 ended (a supervising
+    # --watchdog sees a hung kernel as beats that stop)
+    watchdog.beat()
     timers["indel.align_finish.encode"] += aligner.timers["encode"]
     timers["indel.align_finish.kernels"] += aligner.timers["device"]
     t0 = clock()
@@ -815,6 +819,7 @@ def finish_indel_jobs(records, device="cuda", timers=None):
     t1 = clock()
     allele_cigars = iter(BatchAligner(device=device).align_many(
         [(a or "", b or "") for a, b in allele_pairs]))
+    watchdog.beat()
     out = [_assemble_batch(rec, per_job, keys_of(rec), allele_cigars)
            for rec, per_job in zip(records, per_rec)]
     timers["indel.align_finish.msa"] += t1 - t0

@@ -17,6 +17,8 @@ import multiprocessing as mp
 import os
 import sys
 
+from . import watchdog
+
 
 def worker_pool(n_workers, init_args):
     """A ProcessPoolExecutor of feature workers started with `spawn`, so
@@ -130,6 +132,8 @@ class RunManifest:
         with open(tmp, "w") as fh:
             json.dump(self.done, fh)
         os.replace(tmp, self.path)
+        # a finished chunk is progress for a supervising --watchdog
+        watchdog.beat()
 
 
 class Progress:
@@ -153,6 +157,7 @@ class Progress:
         self.n += k
         if self._bar is not None:
             self._bar.update(k)
+        watchdog.beat()
 
     def close(self):
         if self._bar is not None:

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import time
 
+from . import watchdog
+
 _G = {}
 
 
@@ -193,18 +195,26 @@ def phase_one_contig(bam, snp_reader, chrom, start, end, out_vcf, lowq_vcf,
     from ..phase.mec import haplotag_reads, phase_contig, write_phased_vcf
     from ..pileup.engine import decode_reads_parallel
 
+    # milestone heartbeats: a contig's decode and phasing are legitimate
+    # multi-minute host work at genome scale and must not look like a
+    # stall to a supervising --watchdog (spawned workers inherit the
+    # heartbeat env; they never touch the device)
+    watchdog.beat()
     recs = list(snp_reader.fetch(chrom, start, end))
     hiq = [r for r in recs if r.qual_value >= phase_qual_score]
     lowq = [r for r in recs if r.qual_value < phase_qual_score]
+    watchdog.beat()
     t0 = time.perf_counter()
     # site-filtered decode: phasing only needs read codes at the het sites
     rw = decode_reads_parallel(bam, chrom, max(0, start - 1), end,
                                keep_seq=False,
                                sites=sorted(r.pos - 1 for r in hiq))
+    watchdog.beat()
     t1 = time.perf_counter()
     result, phase_map = phase_contig(hiq, rw, distrust=distrust,
                                      cell_budget=cell_budget,
                                      n_threads=n_threads)
+    watchdog.beat()
     t2 = time.perf_counter()
 
     class _Recs:

@@ -46,7 +46,7 @@ from .pileup.snp_dense import snp_dense_pileup
 from .pileup.snp_features import (SnpChunkFeatures, SnpGroupFeatures,
                                   get_snp_candidates, get_snp_chunk_features)
 from .pileup.snp_pileup import chunk_wire, group_wire, site_depth, snp_pileup
-from .runtime import sharding
+from .runtime import sharding, watchdog
 from .runtime.chunker import group_adjacent_chunks
 from .runtime.device import resolve_device
 
@@ -229,6 +229,9 @@ def infer_snp_group(state, gf, cfg, async_mode=False):
     def finish():
         for mis, js, probs in parts:
             pr = probs.cpu().numpy()
+            # after the copy-back, not at the launch: a hung kernel stops
+            # the beats (launches are asynchronous)
+            watchdog.beat()
             for mi in np.unique(mis):
                 m = mis == mi
                 outs[mi][js[m]] = pr[m]
@@ -291,6 +294,7 @@ def _finisher(B, parts, async_mode):
     def finish():
         for rows, probs in parts:
             out[rows] = probs.cpu().numpy()
+            watchdog.beat()  # after the copy-back (see infer_snp_group)
         return out
 
     return finish if async_mode else finish()

@@ -12,10 +12,11 @@ haplotype-aware F1 against the planted truth (tools.vcf_compare --ref).
 Prints a human-readable table and ONE final JSON line. Accuracy numbers
 are deterministic for a given seed; wall times spread with the host's
 load. The JAX package's tools/bench_e2e.py with its flags, but
-`--device cuda|cpu` (cuda by default) for its `--platform`, and without
-its `--watchdog`: the CLI runs on the card unless asked for the CPU, and
-`cuda` without a GPU fails as the CLI does. It writes no benchmark file
-and sets no limit.
+`--device cuda|cpu` (cuda by default) for its `--platform`: the CLI runs
+on the card unless asked for the CPU, and `cuda` without a GPU fails as
+the CLI does. `--watchdog SECONDS` passes through to the CLI (stall
+supervision, runtime/watchdog.py). It writes no benchmark file and sets
+no limit.
 """
 
 from __future__ import annotations
@@ -49,6 +50,9 @@ def main(argv=None):
                     help="reuse an existing fixture/work directory "
                          "(default: one under the temporary directory)")
     ap.add_argument("--skip_phased_bam", action="store_true")
+    ap.add_argument("--watchdog", type=int, default=0,
+                    help="pass through to the CLI: supervise the run and "
+                         "resume in a fresh process after a stall")
     args = ap.parse_args(argv)
 
     wd = args.workdir or os.path.join(
@@ -78,6 +82,8 @@ def main(argv=None):
            "--cpu", str(args.cpu)]
     if args.skip_phased_bam:
         cli.append("--skip_phased_bam")
+    if args.watchdog:
+        cli += ["--watchdog", str(args.watchdog)]
     wall = run_cli(cli, args.device)
 
     stages = {}

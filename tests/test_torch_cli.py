@@ -101,12 +101,3 @@ def test_snp_vcfs_identical_to_jax_cli(snp_fixture):
     for extra in (dict(resume=True), dict(snp_pipeline_depth=3)):
         run(Config(device="cpu", **kw("port"), **extra))
         assert [_vcf(path("port", n)) for n in names] == data
-
-
-@pytest.mark.parametrize("change", [dict(mode="all", watchdog=5)],
-                         ids=["change1"])  # the id it had beside --cpu 2
-def test_unported_modes_raise(fixture, change):
-    kw = _kw(fixture, "nope")
-    kw.update(change)
-    with pytest.raises(NotImplementedError):
-        run(Config(device="cpu", **kw))
