@@ -502,6 +502,43 @@ def nw_cases(rng):
             yield "ties_" + kind, 192, 192, B_TIE, sname, inputs
 
 
+# K1, K2 and K4 by the names this script's counts give them
+NW_NAMES = (("k1", "nw_tb"), ("k2", "nw_walk"), ("k4", "nw_cigar"))
+
+
+def counter(prefix):
+    """The sum of the port's counters (runtime/metrics.py) whose name
+    starts with `prefix`, 0 if none was counted."""
+    from nanocaller_tpu_torch.runtime.metrics import total
+
+    return total(prefix)
+
+
+def kernel_launches(kernel):
+    """The launches of kernel "k1" ... "k5" in the port's counters."""
+    return counter(kernel + ".launches")
+
+
+def nw_buckets():
+    """{"<kernel name> <Q>x<R>": [launches, pairs]} of K1, K2 and K4."""
+    from nanocaller_tpu_torch.runtime.metrics import counters
+
+    c, out = counters(), {}
+    for k, kname in NW_NAMES:
+        for name, n in counters(k + ".launches.").items():
+            shape = name.rsplit(".", 1)[1]
+            out["%s %s" % (kname, shape)] = [
+                n, c.get("%s.pairs.%s" % (k, shape), 0)]
+    return out
+
+
+def reset_counters(*kernels):
+    """Zero the port's counters of the kernels named ("k1" ... "k5")."""
+    from nanocaller_tpu_torch.runtime import metrics
+
+    metrics.reset_counters(tuple(k + "." for k in kernels))
+
+
 def bound(nbytes, ops):
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b_ops = ops / INT32_OPS_PER_S * 1e3
@@ -509,15 +546,14 @@ def bound(nbytes, ops):
             "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
 
 
-def nw_counters(K):
+def nw_counters():
     """K1, K2 and K4's launch counters, K1's pairs, and the launches and
     pairs of each kernel by bucket."""
-    return {"NW_TB_LAUNCHES": K.NW_TB_LAUNCHES,
-            "NW_WALK_LAUNCHES": K.NW_WALK_LAUNCHES,
-            "NW_CIGAR_LAUNCHES": K.NW_CIGAR_LAUNCHES,
-            "NW_TB_PAIRS": K.NW_TB_PAIRS,
-            "nw_by_bucket": {"%s %dx%d" % k: list(v)
-                             for k, v in sorted(K.BY_BUCKET.items())}}
+    return {"NW_TB_LAUNCHES": kernel_launches("k1"),
+            "NW_WALK_LAUNCHES": kernel_launches("k2"),
+            "NW_CIGAR_LAUNCHES": kernel_launches("k4"),
+            "NW_TB_PAIRS": counter("k1.pairs"),
+            "nw_by_bucket": nw_buckets()}
 
 
 def phase_kernels(K, rng):
@@ -906,7 +942,7 @@ def _compare_fields(ra, rb, kind, label):
     return len(ra), diffs
 
 
-def phase_slice(K, tmp):
+def phase_slice(tmp):
     """Phase 5: the port's CLI on the card (counters reset just before and
     read just after), then on the CPU; the VCFs must agree."""
     from nanocaller_tpu_torch import cli
@@ -921,11 +957,11 @@ def phase_slice(K, tmp):
                 "--cpu", "1", "--device", dev, "--output", out,
                 "--prefix", "smoke", "--sample", "S",
                 "--suppress_progress_bar"]
-        K.reset_counters()
+        reset_counters("k1", "k2", "k4")
         t0 = time.perf_counter()
         outputs = cli.main(argv)
         wall = time.perf_counter() - t0
-        counts = nw_counters(K)
+        counts = nw_counters()
         with open(os.path.join(out, "metrics.json")) as fh:
             metrics = json.load(fh)
         runs[dev] = (outputs["indels"], wall, counts, metrics)
@@ -1064,8 +1100,6 @@ def phase_snp_slice(tmp):
     reset just before and read just after), then on the CPU; the VCFs
     must agree. Then the cuda run under torch.profiler."""
     from nanocaller_tpu_torch import cli
-    from nanocaller_tpu_torch.align import nw_kernels as K
-    from nanocaller_tpu_torch.pileup import snp_pileup as K3
 
     t0 = time.perf_counter()
     fasta_p, bam_p, n_planted, n_reads = write_snp_fixture(tmp)
@@ -1079,13 +1113,12 @@ def phase_snp_slice(tmp):
 
     runs = {}
     for dev in ("cuda", "cpu"):
-        K.reset_counters()
-        K3.reset_counters()
+        reset_counters("k1", "k2", "k3", "k4")
         t0 = time.perf_counter()
         outputs = cli.main(argv(dev, "snp_" + dev))
         wall = time.perf_counter() - t0
-        counts = {"SNP_PILEUP_LAUNCHES": K3.SNP_PILEUP_LAUNCHES,
-                  "NW_TB_LAUNCHES": K.NW_TB_LAUNCHES}
+        counts = {"SNP_PILEUP_LAUNCHES": kernel_launches("k3"),
+                  "NW_TB_LAUNCHES": kernel_launches("k1")}
         with open(os.path.join(tmp, "snp_" + dev, "metrics.json")) as fh:
             metrics = json.load(fh)
         runs[dev] = (outputs["snps"], wall, counts, metrics)
@@ -1107,7 +1140,7 @@ def phase_snp_slice(tmp):
         emit({"phase": "snp_slice_rounding_case", "vcf": "unfiltered", **d})
     for d in d_pass:
         emit({"phase": "snp_slice_rounding_case", "vcf": "pass", **d})
-    K3.reset_counters()
+    reset_counters("k3")
     prof, kern, dev = profile_slice(cli, argv("cuda", "snp_prof"),
                                     ("snp_pileup_kernel",))
     # the SNP device time by kind: K3, copies, and the rest (the CNN's
@@ -1135,7 +1168,7 @@ def phase_snp_slice(tmp):
           "cpu_timers_s": runs["cpu"][3]["timers_s"], **counts})
     emit({"phase": "snp_slice_profile", **prof})
     emit({"phase": "snp_slice_profile_k3", **kern,
-          "launches": K3.SNP_PILEUP_LAUNCHES, **breakdown})
+          "launches": kernel_launches("k3"), **breakdown})
     return counts, fasta_p, bam_p
 
 
@@ -1370,9 +1403,7 @@ def phase_all_slice(tmp):
     fails), and the haplotagged BAM artifacts record-identical. Then the
     cuda run under torch.profiler."""
     from nanocaller_tpu_torch import cli
-    from nanocaller_tpu_torch.align import nw_kernels as K
     from nanocaller_tpu_torch.io.bam import BamReader
-    from nanocaller_tpu_torch.pileup import snp_pileup as K3
     from nanocaller_tpu_torch.runtime.chunker import (get_chunks,
                                                       get_regions_list)
     from nanocaller_tpu_torch.sim import write_all_fixture
@@ -1397,13 +1428,12 @@ def phase_all_slice(tmp):
     cohorts = len(_group_adjacent(chunks, range(len(chunks)), cfg))
     runs = {}
     for dev in ("cuda", "cpu"):
-        K.reset_counters()
-        K3.reset_counters()
+        reset_counters("k1", "k2", "k3", "k4")
         t0 = time.perf_counter()
         outputs = cli.main(argv(dev, "all_" + dev))
         wall = time.perf_counter() - t0
-        counts = {"SNP_PILEUP_LAUNCHES": K3.SNP_PILEUP_LAUNCHES,
-                  **nw_counters(K)}
+        counts = {"SNP_PILEUP_LAUNCHES": kernel_launches("k3"),
+                  **nw_counters()}
         with open(os.path.join(tmp, "all_" + dev, "metrics.json")) as fh:
             metrics = json.load(fh)
         runs[dev] = (outputs, wall, counts, metrics)
@@ -1479,8 +1509,7 @@ def phase_all_slice(tmp):
                 fail("--skip_phased_bam changed %s" % os.path.basename(path))
     if os.path.exists(os.path.join(pdir("skip"), "chr_t.phased.bam")):
         fail("--skip_phased_bam wrote the artifact")
-    K.reset_counters()
-    K3.reset_counters()
+    reset_counters("k1", "k2", "k3", "k4")
     prof, kern, dev = profile_slice(
         cli, argv("cuda", "all_prof"),
         ("nw_tb_rows_kernel", "nw_tb_wave_kernel", "nw_walk_kernel",
@@ -1512,8 +1541,8 @@ def phase_all_slice(tmp):
           "cuda_skip_phased_bam_timers_s": skip_timers, **counts})
     emit({"phase": "all_slice_profile", **prof})
     emit({"phase": "all_slice_profile_kernels", **kern,
-          "launches_k3": K3.SNP_PILEUP_LAUNCHES,
-          "launches_k1": K.NW_TB_LAUNCHES})
+          "launches_k3": kernel_launches("k3"),
+          "launches_k1": kernel_launches("k1")})
     return counts
 
 
@@ -1528,7 +1557,6 @@ def phase_a2a(tmp, fasta_p, bam_p):
     from nanocaller_tpu_torch import cli
     from nanocaller_tpu_torch.io.bam import BamReader
     from nanocaller_tpu_torch.pileup import snp_features as SF
-    from nanocaller_tpu_torch.pileup import snp_pileup as K3
     from nanocaller_tpu_torch.pileup.engine import decode_reads
     from nanocaller_tpu_torch.runtime.chunker import (get_chunks,
                                                       get_regions_list)
@@ -1566,10 +1594,10 @@ def phase_a2a(tmp, fasta_p, bam_p):
         cfg.output = out
         SF._GROUP_MAX_READS = limit
         try:
-            K3.reset_counters()
+            reset_counters("k3")
             t0 = time.perf_counter()
             call_snps(cfg, bam, regions, [dict(m) for m in group], out)
-            runs[name] = (K3.SNP_PILEUP_LAUNCHES, time.perf_counter() - t0,
+            runs[name] = (kernel_launches("k3"), time.perf_counter() - t0,
                           os.path.join(out, "smoke.snps.vcf.gz"))
         finally:
             SF._GROUP_MAX_READS = saved
@@ -1769,13 +1797,10 @@ def phase_a2b(tmp, snp_fasta, snp_bam, cut_fasta, cut_bam):
     Returns {path: counters} of the cuda runs, the K3 rows of (c) and the
     K5 rows, the (a) run's first."""
     from nanocaller_tpu_torch import cli
-    from nanocaller_tpu_torch.align import nw_kernels as K
     from nanocaller_tpu_torch.caller import run
     from nanocaller_tpu_torch.io.bam import BamReader
     from nanocaller_tpu_torch.io.fasta import FastaFile
-    from nanocaller_tpu_torch.pileup import snp_dense as K5
     from nanocaller_tpu_torch.pileup import snp_features as SF
-    from nanocaller_tpu_torch.pileup import snp_pileup as K3
     from nanocaller_tpu_torch import snp_caller as SC
     from nanocaller_tpu_torch.snp_caller import SnpCallerState, chunk_cohorts
 
@@ -1798,9 +1823,7 @@ def phase_a2b(tmp, snp_fasta, snp_bam, cut_fasta, cut_bam):
             "smoke", "--sample", "S", "--suppress_progress_bar", *extra])
         if span is not None:
             cfg.snp_group_span = span
-        K.reset_counters()
-        K3.reset_counters()
-        K5.reset_counters()
+        reset_counters("k1", "k2", "k3", "k4", "k5")
         launch = SC.snp_dense_pileup
         if capture is not None:
             def keep(*args):
@@ -1815,11 +1838,11 @@ def phase_a2b(tmp, snp_fasta, snp_bam, cut_fasta, cut_bam):
         finally:
             SC.snp_dense_pileup = launch
         wall = time.perf_counter() - t0
-        counts = {"k3_group": K3.BY_WIRE["group"],
-                  "k3_chunk": K3.BY_WIRE["chunk"],
-                  "k5": K5.SNP_DENSE_LAUNCHES,
-                  "k1": K.NW_TB_LAUNCHES, "k2": K.NW_WALK_LAUNCHES,
-                  "k4": K.NW_CIGAR_LAUNCHES}
+        counts = {"k3_group": counter("k3.launches.group"),
+                  "k3_chunk": counter("k3.launches.chunk"),
+                  "k5": kernel_launches("k5"),
+                  "k1": kernel_launches("k1"), "k2": kernel_launches("k2"),
+                  "k4": kernel_launches("k4")}
         if dev == "cpu" and any(counts.values()):
             fail("the cpu run %s launched a CUDA kernel: %s" % (out, counts))
         return out, wall, counts
@@ -2088,8 +2111,6 @@ def phase_dag(tmp):
     indel jobs aligned in this process on K1/K2 (see the module
     docstring). Returns the counters of the cuda --cpu N run."""
     from nanocaller_tpu_torch import cli
-    from nanocaller_tpu_torch.align import nw_kernels as K
-    from nanocaller_tpu_torch.pileup import snp_pileup as K3
     from nanocaller_tpu_torch.sim import write_contigs_fixture
 
     n = min(8, os.cpu_count() or 1)
@@ -2109,8 +2130,7 @@ def phase_dag(tmp):
                 "--suppress_progress_bar"]
 
     def drive(dev, cpu, out, watch=None):
-        K.reset_counters()
-        K3.reset_counters()
+        reset_counters("k1", "k2", "k3", "k4")
         t0 = time.perf_counter()
         if watch:
             with watch:
@@ -2118,8 +2138,8 @@ def phase_dag(tmp):
         else:
             outputs = cli.main(argv(dev, cpu, out))
         wall = time.perf_counter() - t0
-        counts = {"SNP_PILEUP_LAUNCHES": K3.SNP_PILEUP_LAUNCHES,
-                  **nw_counters(K)}
+        counts = {"SNP_PILEUP_LAUNCHES": kernel_launches("k3"),
+                  **nw_counters()}
         with open(os.path.join(tmp, out, "metrics.json")) as fh:
             metrics = json.load(fh)
         return outputs, wall, counts, metrics, watch
@@ -2227,8 +2247,7 @@ def phase_dag(tmp):
             or tagged < n_reads // 3:
         fail("too little was called or tagged: %s, %d reads tagged"
              % (records, tagged))
-    K.reset_counters()
-    K3.reset_counters()
+    reset_counters("k1", "k2", "k3", "k4")
     prof, kern, dev = profile_slice(
         cli, argv("cuda", n, "dag_prof"),
         ("nw_tb_rows_kernel", "nw_tb_wave_kernel", "nw_walk_kernel",
@@ -2253,8 +2272,8 @@ def phase_dag(tmp):
           "device_owner_pid": os.getpid()})
     emit({"phase": "dag_profile", **prof})
     emit({"phase": "dag_profile_kernels", **kern,
-          "launches_k3": K3.SNP_PILEUP_LAUNCHES,
-          "launches_k1": K.NW_TB_LAUNCHES,
+          "launches_k3": kernel_launches("k3"),
+          "launches_k1": kernel_launches("k1"),
           "copies_us": sum(us for k, (us, _) in dev.items()
                            if "Memcpy" in k or "Memset" in k)})
     return counts, fasta_p, bam_p, wall
@@ -2327,23 +2346,20 @@ def phase_ccs(tmp, fasta_p, bam_p):
     reads 260 bp of reference after a candidate). Returns the cuda run's
     counters."""
     from nanocaller_tpu_torch import cli
-    from nanocaller_tpu_torch.align import nw_kernels as K
-    from nanocaller_tpu_torch.pileup import snp_pileup as K3
 
     unf = lambda p: p.replace(".snps.vcf.gz", ".unfiltered.snps.vcf.gz")
     runs = {}
     for dev in ("cuda", "cpu"):
         out = os.path.join(tmp, "ccs_" + dev)
-        K.reset_counters()
-        K3.reset_counters()
+        reset_counters("k1", "k2", "k3", "k4")
         t0 = time.perf_counter()
         outputs = cli.main([
             "--bam", bam_p, "--ref", fasta_p, "--mode", "all", "--cpu", "1",
             "--preset", "ccs", "--device", dev, "--output", out,
             "--prefix", "smoke", "--sample", "S", "--suppress_progress_bar"])
         wall = time.perf_counter() - t0
-        counts = {"SNP_PILEUP_LAUNCHES": K3.SNP_PILEUP_LAUNCHES,
-                  **nw_counters(K)}
+        counts = {"SNP_PILEUP_LAUNCHES": kernel_launches("k3"),
+                  **nw_counters()}
         with open(os.path.join(out, "metrics.json")) as fh:
             timers = json.load(fh)["timers_s"]
         runs[dev] = (outputs, wall, counts, timers)
@@ -2392,18 +2408,17 @@ def _smi_line():
         timeout=60).stdout.strip().splitlines()[0]
 
 
-def kernel_counts(K, K3, K5):
+def kernel_counts():
     """Every kernel's launch counter, K1/K2/K4's pairs (summed over the
     buckets) and K3's rows, as a phase 15 run reads them."""
-    pairs = {}
-    for (kernel, _q, _r), (_n, b) in K.BY_BUCKET.items():
-        pairs[kernel] = pairs.get(kernel, 0) + b
-    return {"SNP_PILEUP_LAUNCHES": K3.SNP_PILEUP_LAUNCHES,
-            "SNP_PILEUP_ROWS": K3.SNP_PILEUP_ROWS,
-            "SNP_DENSE_LAUNCHES": K5.SNP_DENSE_LAUNCHES,
-            "NW_TB_LAUNCHES": K.NW_TB_LAUNCHES,
-            "NW_WALK_LAUNCHES": K.NW_WALK_LAUNCHES,
-            "NW_CIGAR_LAUNCHES": K.NW_CIGAR_LAUNCHES,
+    pairs = {kname: counter(k + ".pairs") for k, kname in NW_NAMES
+             if counter(k + ".pairs")}
+    return {"SNP_PILEUP_LAUNCHES": kernel_launches("k3"),
+            "SNP_PILEUP_ROWS": counter("k3.rows"),
+            "SNP_DENSE_LAUNCHES": kernel_launches("k5"),
+            "NW_TB_LAUNCHES": kernel_launches("k1"),
+            "NW_WALK_LAUNCHES": kernel_launches("k2"),
+            "NW_CIGAR_LAUNCHES": kernel_launches("k4"),
             "pairs": pairs}
 
 
@@ -2419,9 +2434,6 @@ def cli_child(argv):
     sys.path.insert(0, HERE)
     import torch
     from nanocaller_tpu_torch import cli
-    from nanocaller_tpu_torch.align import nw_kernels as K
-    from nanocaller_tpu_torch.pileup import snp_dense as K5
-    from nanocaller_tpu_torch.pileup import snp_pileup as K3
     from nanocaller_tpu_torch.runtime import distributed
 
     imported = time.time() - t_spawn
@@ -2435,16 +2447,14 @@ def cli_child(argv):
     distributed.initialize(cfg.coordinator, cfg.num_processes,
                            cfg.process_id)
     gloo = time.perf_counter() - t0
-    K.reset_counters()
-    K3.reset_counters()
-    K5.reset_counters()
+    reset_counters("k1", "k2", "k3", "k4", "k5")
     t0 = time.perf_counter()
     cli.main(argv)
     wall = time.perf_counter() - t0
     emit({"process_id": cfg.process_id, "import_s": imported,
           "startup_s": startup, "gloo_init_s": gloo, "run_s": wall,
           "ctx_at": ctx_at, "resume": cfg.resume,
-          "counts": kernel_counts(K, K3, K5)})
+          "counts": kernel_counts()})
     return 0
 
 
@@ -2479,9 +2489,6 @@ def phase_dist(tmp, dag_fasta, dag_bam, cut_fasta, cut_bam):
     the main path on phase 12's fixture at --cpu 4 (see the module
     docstring). Returns the summed counters of (b)'s two processes."""
     from nanocaller_tpu_torch import cli
-    from nanocaller_tpu_torch.align import nw_kernels as K
-    from nanocaller_tpu_torch.pileup import snp_dense as K5
-    from nanocaller_tpu_torch.pileup import snp_pileup as K3
 
     t_phase = time.perf_counter()
     out = lambda name: os.path.join(tmp, "dist_" + name)
@@ -2496,12 +2503,10 @@ def phase_dist(tmp, dag_fasta, dag_bam, cut_fasta, cut_bam):
         d, "smoke.%s.vcf.gz" % name if name else "smoke.vcf.gz")
 
     def drive(args):
-        K.reset_counters()
-        K3.reset_counters()
-        K5.reset_counters()
+        reset_counters("k1", "k2", "k3", "k4", "k5")
         t0 = time.perf_counter()
         cli.main(args)
-        return time.perf_counter() - t0, kernel_counts(K, K3, K5)
+        return time.perf_counter() - t0, kernel_counts()
 
     # (a) one process
     wall_a, counts_a = drive(argv(dag_bam, dag_fasta, out("a")))
@@ -2632,9 +2637,7 @@ def phase_dp(fasta_p, bam_p):
     from nanocaller_tpu_torch.config import Config
     from nanocaller_tpu_torch.io.bam import BamReader
     from nanocaller_tpu_torch.io.fasta import FastaFile
-    from nanocaller_tpu_torch.pileup import snp_dense as K5
     from nanocaller_tpu_torch.pileup import snp_features as sf
-    from nanocaller_tpu_torch.pileup import snp_pileup as K3
     from nanocaller_tpu_torch.runtime import sharding
 
     cfg = Config(bam=bam_p, ref=fasta_p, batch_size=DP_BATCH, device="cuda")
@@ -2678,11 +2681,10 @@ def phase_dp(fasta_p, bam_p):
                     "indel": lambda: I.infer_indel_many(
                         indel, [_Indels()], batch_size=DP_BATCH)[0]}
             for name, fn in runs.items():
-                K3.reset_counters()
-                K5.reset_counters()
+                reset_counters("k3", "k5")
                 out[name, n] = fn()
-                launches[name, n] = (K3.SNP_PILEUP_LAUNCHES,
-                                     K5.SNP_DENSE_LAUNCHES)
+                launches[name, n] = (kernel_launches("k3"),
+                                     kernel_launches("k5"))
     finally:
         sharding.inference_devices = saved
     # the launches two replicas must make: one a (cohort, replica) with
@@ -2858,14 +2860,12 @@ def phase_train(tmp):
     import numpy as np
     import torch
     from nanocaller_tpu_torch import entry as E
-    from nanocaller_tpu_torch.align import nw_kernels as K
     from nanocaller_tpu_torch.io.bam import BamReader
     from nanocaller_tpu_torch.io.fasta import FastaFile
     from nanocaller_tpu_torch.io.vcf import VcfReader
     from nanocaller_tpu_torch.models import (IndelModel, SNPModel,
                                              load_model,
                                              torch_state_dict_from_params)
-    from nanocaller_tpu_torch.pileup import snp_pileup as K3
     from nanocaller_tpu_torch.runtime.sharding import shard_train_step_demo
     from nanocaller_tpu_torch.sim import write_train_fixture
     from nanocaller_tpu_torch.train.data import (
@@ -2893,10 +2893,10 @@ def phase_train(tmp):
             device=dev)
         return out, time.perf_counter() - t0
 
-    K.reset_counters()
+    reset_counters("k1", "k2", "k4")
     (x, labels, _pos), walls["indel_examples_cuda_s"] = indel_examples(
         chunk, "cuda")
-    counts = nw_counters(K)
+    counts = nw_counters()
     if counts["NW_TB_LAUNCHES"] == 0:
         fail("the indel training features launched no K1")
     check = dict(chunk, end=TRAIN_CHECK_LEN)
@@ -3027,10 +3027,10 @@ def phase_train(tmp):
 
     # (e) entry()'s forward on the chunk wire, and dryrun_multichip(1)
     fn, args = E.entry(device="cuda")
-    K3.reset_counters()
+    reset_counters("k3")
     got = fn(*args)
-    entry_counts = {"SNP_PILEUP_LAUNCHES": K3.SNP_PILEUP_LAUNCHES,
-                    "chunk_wire": K3.BY_WIRE["chunk"]}
+    entry_counts = {"SNP_PILEUP_LAUNCHES": kernel_launches("k3"),
+                    "chunk_wire": counter("k3.launches.chunk")}
     if entry_counts["chunk_wire"] == 0:
         fail("entry() launched no K3 on a chunk wire")
     cpu_fn, cpu_args = E.entry(device="cpu")
@@ -3064,14 +3064,11 @@ def phase_tools_api(tmp, snp_fasta, snp_bam, indel_fasta, indel_bam):
     entry points' cuda runs by path."""
     import torch
 
-    from nanocaller_tpu_torch.align import nw_kernels as K
     from nanocaller_tpu_torch.config import Config
     from nanocaller_tpu_torch.indel_caller import (IndelCallerState,
                                                    call_indel_chunk)
     from nanocaller_tpu_torch.io.bam import BamReader
     from nanocaller_tpu_torch.io.fasta import FastaFile
-    from nanocaller_tpu_torch.pileup import snp_dense as K5
-    from nanocaller_tpu_torch.pileup import snp_pileup as K3
     from nanocaller_tpu_torch.snp_caller import SnpCallerState, call_chunk
 
     t_phase = time.perf_counter()
@@ -3123,13 +3120,11 @@ def phase_tools_api(tmp, snp_fasta, snp_bam, indel_fasta, indel_bam):
 
     # (b) the one-chunk entry points, cuda then cpu
     def reset():
-        K.reset_counters()
-        K3.reset_counters()
-        K5.reset_counters()
+        reset_counters("k1", "k2", "k3", "k4", "k5")
 
     def counts():
-        return {**{k: v for k, v in kernel_counts(K, K3, K5).items()
-                   if k != "pairs"}, "chunk_wire": K3.BY_WIRE["chunk"]}
+        return {**{k: v for k, v in kernel_counts().items()
+                   if k != "pairs"}, "chunk_wire": counter("k3.launches.chunk")}
 
     snp_states = {dev: SnpCallerState.create("ONT-HG002", device=dev)
                   for dev in ("cuda", "cpu")}
@@ -3583,7 +3578,7 @@ def main():
     rows = phase_kernels(K, rng)
     phase_models()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        counts, indel_fasta, indel_bam = phase_slice(K, tmp)
+        counts, indel_fasta, indel_bam = phase_slice(tmp)
         phase_snp_models()
         snp_counts, fasta_p, bam_p = phase_snp_slice(tmp)
         k3_rows = phase_k3(fasta_p, bam_p,

@@ -39,6 +39,7 @@ import tempfile
 import torch
 
 from ..runtime import watchdog
+from ..runtime.metrics import count
 
 NEG = -(1 << 28)
 
@@ -52,29 +53,16 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-# launch counters: each wrapper adds one where it launches its kernel
-NW_TB_LAUNCHES = 0
-NW_WALK_LAUNCHES = 0
-NW_CIGAR_LAUNCHES = 0
-# pairs whose DP ran in K1 (the sum of B over K1 launches)
-NW_TB_PAIRS = 0
-# {(kernel, Q, R): [launches, pairs]} of K1, K2 and K4, added to beside
-# their launch counters
-BY_BUCKET = {}
-
 _LIB = None
 
 
-def reset_counters():
-    global NW_TB_LAUNCHES, NW_WALK_LAUNCHES, NW_CIGAR_LAUNCHES, NW_TB_PAIRS
-    NW_TB_LAUNCHES = NW_WALK_LAUNCHES = NW_CIGAR_LAUNCHES = NW_TB_PAIRS = 0
-    BY_BUCKET.clear()
-
-
-def _count_bucket(kernel, Q, R, B):
-    row = BY_BUCKET.setdefault((kernel, Q, R), [0, 0])
-    row[0] += 1
-    row[1] += B
+def _count_launch(k, Q, R, B):
+    """The counters (runtime/metrics.py) of K1, K2 and K4: each wrapper
+    adds one to `<k>.launches.<Q>x<R>` where it launches its kernel on a
+    (Q, R) bucket, and the launch's pairs to `<k>.pairs.<Q>x<R>`;
+    metrics.total sums a kernel's over the buckets."""
+    count("%s.launches.%dx%d" % (k, Q, R))
+    count("%s.pairs.%dx%d" % (k, Q, R), B)
 
 
 def _nvcc():
@@ -167,7 +155,6 @@ def _check(t, name, dtype, ndim):
 def nw_tb(qcodes, rcodes, match, mismatch, gap_open, gap_extend):
     """qcodes (B, Q) int8, rcodes (B, R) int8 (codes 0-3 ACGT, 4 other/pad)
     → tb (B, Q+1, R+1) uint8, bit-identical to _batch_nw's traceback."""
-    global NW_TB_LAUNCHES, NW_TB_PAIRS
     _check(qcodes, "qcodes", torch.int8, 2)
     _check(rcodes, "rcodes", torch.int8, 2)
     if qcodes.device != rcodes.device or qcodes.shape[0] != rcodes.shape[0]:
@@ -193,9 +180,7 @@ def nw_tb(qcodes, rcodes, match, mismatch, gap_open, gap_extend):
                               stream)
     if rc != 0:
         raise RuntimeError("nw_tb launch failed: cudaError %d" % rc)
-    NW_TB_LAUNCHES += 1
-    NW_TB_PAIRS += B
-    _count_bucket("nw_tb", Q, R, B)
+    _count_launch("k1", Q, R, B)
     return tb
 
 
@@ -280,7 +265,6 @@ def nw_walk(tb, qlens, rlens, T):
     The lengths stay on the host, where the caller builds them: they are
     range-checked there and copied to the card with the launch, so the
     check costs no device round trip."""
-    global NW_WALK_LAUNCHES
     _check(tb, "tb", torch.uint8, 3)
     _check(qlens, "qlens", torch.int32, 1)
     _check(rlens, "rlens", torch.int32, 1)
@@ -312,8 +296,7 @@ def nw_walk(tb, qlens, rlens, T):
                                 stream)
     if rc != 0:
         raise RuntimeError("nw_walk launch failed: cudaError %d" % rc)
-    NW_WALK_LAUNCHES += 1
-    _count_bucket("nw_walk", Q1 - 1, R1 - 1, B)
+    _count_launch("k2", Q1 - 1, R1 - 1, B)
     return ops
 
 
@@ -363,7 +346,6 @@ def nw_cigar(ops, qraw, rraw):
     diagonal step is '=' only for equal bytes in "ACGT". The rest of a row
     is unspecified. counts[b] is -1 for a stream that reads past Q or R or
     holds a code outside 0-3; the caller raises on it."""
-    global NW_CIGAR_LAUNCHES
     _check(ops, "ops", torch.int8, 2)
     _check(qraw, "qraw", torch.uint8, 2)
     _check(rraw, "rraw", torch.uint8, 2)
@@ -389,8 +371,7 @@ def nw_cigar(ops, qraw, rraw):
                                  counts.data_ptr(), B, T, Q, R, stream)
     if rc != 0:
         raise RuntimeError("nw_cigar launch failed: cudaError %d" % rc)
-    NW_CIGAR_LAUNCHES += 1
-    _count_bucket("nw_cigar", Q, R, B)
+    _count_launch("k4", Q, R, B)
     return runs, counts
 
 

@@ -181,8 +181,11 @@ def run(cfg: Config, progress=None):
             return finish(outputs)
     if cfg.mode in ("snps", "all"):
         chunks = get_chunks(regions_list, cfg.cpu)
-        with metrics.timer("snp_calling"), profile_region(
-                os.path.join(cfg.output, "trace"), enabled=cfg.profile):
+        # the profiler outside the stage's timer, so that the trace holds
+        # the stage's own span
+        with profile_region(os.path.join(cfg.output, "trace"),
+                            enabled=cfg.profile), \
+                metrics.timer("snp_calling"):
             outputs["snps"] = call_snps(
                 cfg, bam, regions_list, chunks, cfg.output,
                 progress=progress, manifest=manifest, metrics=metrics,

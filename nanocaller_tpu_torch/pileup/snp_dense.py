@@ -1,5 +1,5 @@
 """K5 `snp_dense_pileup`: the dense SNP path's pileup assembly, its plain
-PyTorch twin, and its launch counter.
+PyTorch twin, and its launch counter (`k5.launches`, runtime/metrics.py).
 
 The hand-written CUDA kernel (csrc/snp_dense_pileup.cu, built with the
 other kernels into the library of align/nw_kernels.py) replaces the
@@ -18,17 +18,11 @@ from __future__ import annotations
 import torch
 
 from ..align import nw_kernels
+from ..runtime.metrics import count
 from .snp_features import CENTER, WIDTH
 
-# launches of K5 (the wrapper adds one where it launches the kernel)
-SNP_DENSE_LAUNCHES = 0
 # rows a step of the twin: bounds its (rows, R, 41, 5) one-hot
 _TWIN_ROWS = 1024
-
-
-def reset_counters():
-    global SNP_DENSE_LAUNCHES
-    SNP_DENSE_LAUNCHES = 0
 
 
 def _check_inputs(codes, read_mask, col_ref, col_valid, center_ref, norm):
@@ -73,7 +67,6 @@ def snp_dense_pileup(codes, read_mask, col_ref, col_valid, center_ref, norm):
     one-hot, rows 1-4 the signed, scaled counts of the masked reads with
     centre base A/G/T/C and the ref channel; ref (B, 4) float32 the
     one-hot of center_ref (all zero for N)."""
-    global SNP_DENSE_LAUNCHES
     B, R = _check_inputs(codes, read_mask, col_ref, col_valid, center_ref,
                          norm)
     if codes.device.type == "cpu":
@@ -94,7 +87,7 @@ def snp_dense_pileup(codes, read_mask, col_ref, col_valid, center_ref, norm):
     if rc != 0:
         raise RuntimeError("snp_dense_pileup launch failed: cudaError %d"
                            % rc)
-    SNP_DENSE_LAUNCHES += 1
+    count("k5.launches")
     return x, ref
 
 

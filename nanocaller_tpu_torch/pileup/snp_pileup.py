@@ -1,5 +1,6 @@
 """K3 `snp_pileup`: the SNP group kernel from an observation payload to
-the CNN's input, its plain PyTorch twin, and its launch counters.
+the CNN's input, its plain PyTorch twin, and the payload's copies to the
+device.
 
 The hand-written CUDA kernel (csrc/snp_pileup.cu, built with K1 and K2
 into the library of align/nw_kernels.py) replaces the XLA-jitted body of
@@ -25,6 +26,13 @@ lists whole because its R is at least every normal row's depth.
 
 `snp_pileup` takes its twin `snp_pileup_reference` only for tensors on
 the CPU; for CUDA tensors it launches the kernel or raises.
+
+Counters (runtime/metrics.py): `k3.launches.group` and
+`k3.launches.chunk` (launches by the kind of wire), `k3.rows` (the rows
+those launches built); `to_device` counts the SNP path's host-to-device
+copies (`snp.h2d_bytes`, `snp.blocking_copies`).
+Spans: `_wire` records its host layout as `snp.wire` and its copies as
+`snp.copy_in`.
 """
 
 from __future__ import annotations
@@ -35,22 +43,24 @@ import numpy as np
 import torch
 
 from ..align import nw_kernels
+from ..runtime.metrics import count, span
 from .snp_features import BAND_SCHEDULES, CENTER, WIDTH
 
-# launches of K3 (the wrapper adds one where it launches the kernel),
-# in all and by the kind of wire ("group" or "chunk"), and the rows
-# those launches built
-SNP_PILEUP_LAUNCHES = 0
-SNP_PILEUP_ROWS = 0
-BY_WIRE = {"group": 0, "chunk": 0}
 # rows of the band table a side: the most bands any schedule has
 MAX_BANDS = 7
 
 
-def reset_counters():
-    global SNP_PILEUP_LAUNCHES, SNP_PILEUP_ROWS
-    SNP_PILEUP_LAUNCHES = SNP_PILEUP_ROWS = 0
-    BY_WIRE.update(group=0, chunk=0)
+def to_device(host, device):
+    """Host arrays {name: array} → {name: tensor on `device`}, a copy each
+    that is not empty (PyTorch copies nothing for an empty one). A copy
+    from pageable host memory without non_blocking makes the host wait
+    for the device's stream, so each counts in snp.blocking_copies, and
+    its bytes in snp.h2d_bytes (counted on every device, the CPU's
+    included)."""
+    arrays = {k: np.ascontiguousarray(a) for k, a in host.items()}
+    count("snp.blocking_copies", sum(1 for a in arrays.values() if a.size))
+    count("snp.h2d_bytes", sum(a.nbytes for a in arrays.values()))
+    return {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
 
 
 def band_table(seq_type):
@@ -141,7 +151,7 @@ class PileupWire:
                      if f.name != "kind")
 
 
-def group_wire(gf, device):
+def group_wire(gf, device, arg=None):
     """A group payload's host arrays (SnpGroupFeatures, or any object with
     its read_lo, read_hi, site_*, minor_bits, exc_*, hole_*, nbr_pos,
     nbr_union and seq_type fields) → a PileupWire on `device`: the trash
@@ -151,10 +161,9 @@ def group_wire(gf, device):
     table of gf.seq_type.
     Raises ValueError, before any copy, if nbr_pos or nbr_union is not
     sorted (K3 counts a read's cells over the columns it reaches, which
-    needs the columns' sites in order)."""
-    rows = np.arange(len(gf.site_ref) + 2, dtype=np.int32)
-    return _wire(gf, np.searchsorted(gf.exc_site, rows).astype(np.int32),
-                 gf.exc_rid, gf.exc_code, device, "group")
+    needs the columns' sites in order). `arg` tags the spans (the
+    group's number)."""
+    return _wire(gf, None, gf.exc_rid, gf.exc_code, device, "group", arg)
 
 
 def chunk_wire(feats, device):
@@ -169,38 +178,44 @@ def chunk_wire(feats, device):
                  packed >> 3, packed & 7, device, "chunk")
 
 
-def _wire(gf, exc_indptr, exc_rid, exc_code, device, kind):
-    S = len(gf.site_ref)
-    i32 = np.int32
-    nbr_pos = np.asarray(gf.nbr_pos, i32)
-    nbr_union = np.asarray(gf.nbr_union, i32)
-    for name, a in (("nbr_pos", nbr_pos), ("nbr_union", nbr_union)):
-        if len(a) > 1 and (np.diff(a) < 0).any():
-            raise ValueError("%s_wire: %s must be sorted" % (kind, name))
-    trash = np.full(1, 4, np.int8)
-    read_lo = np.asarray(gf.read_lo, i32)
-    read_hi = np.asarray(gf.read_hi, i32)
-    spans = np.maximum(read_hi.astype(np.int64) - read_lo + 1, 0)
-    span_start = np.zeros(len(spans), i32)
-    if len(spans) > 1:
-        span_start[1:] = np.cumsum(spans[:-1])
-    order, win_lo, win_hi = read_windows(read_lo, read_hi, S)
-    rows = np.arange(S + 2, dtype=i32)
-    site = lambda a: np.concatenate([np.asarray(a, np.int8), trash])
-    host = dict(
-        read_lo=read_lo, read_hi=read_hi, span_start=span_start,
-        site_ref=site(gf.site_ref), site_major=site(gf.site_major),
-        site_minor=site(gf.site_minor),
-        minor_bits=np.asarray(gf.minor_bits, np.uint8),
-        exc_indptr=exc_indptr, exc_rid=np.asarray(exc_rid, i32),
-        exc_code=np.asarray(exc_code, np.int8),
-        hole_indptr=np.searchsorted(gf.hole_site, rows).astype(i32),
-        hole_rid=np.asarray(gf.hole_rid, i32),
-        order=order, win_lo=win_lo, win_hi=win_hi,
-        nbr_pos=nbr_pos, nbr_union=nbr_union,
-        bands=band_table(gf.seq_type))
-    return PileupWire(**{k: torch.from_numpy(np.ascontiguousarray(v))
-                         .to(device) for k, v in host.items()}, kind=kind)
+def _wire(gf, exc_indptr, exc_rid, exc_code, device, kind, arg=None):
+    """The wire's host layout (span snp.wire), then its 18 copies to
+    `device` (span snp.copy_in), both tagged with `arg`. exc_indptr None:
+    the CSR row pointers of gf.exc_site (a group's exceptions)."""
+    with span("snp.wire", arg):
+        S = len(gf.site_ref)
+        i32 = np.int32
+        nbr_pos = np.asarray(gf.nbr_pos, i32)
+        nbr_union = np.asarray(gf.nbr_union, i32)
+        for name, a in (("nbr_pos", nbr_pos), ("nbr_union", nbr_union)):
+            if len(a) > 1 and (np.diff(a) < 0).any():
+                raise ValueError("%s_wire: %s must be sorted" % (kind, name))
+        trash = np.full(1, 4, np.int8)
+        read_lo = np.asarray(gf.read_lo, i32)
+        read_hi = np.asarray(gf.read_hi, i32)
+        spans = np.maximum(read_hi.astype(np.int64) - read_lo + 1, 0)
+        span_start = np.zeros(len(spans), i32)
+        if len(spans) > 1:
+            span_start[1:] = np.cumsum(spans[:-1])
+        order, win_lo, win_hi = read_windows(read_lo, read_hi, S)
+        rows = np.arange(S + 2, dtype=i32)
+        if exc_indptr is None:
+            exc_indptr = np.searchsorted(gf.exc_site, rows).astype(i32)
+        site = lambda a: np.concatenate([np.asarray(a, np.int8), trash])
+        host = dict(
+            read_lo=read_lo, read_hi=read_hi, span_start=span_start,
+            site_ref=site(gf.site_ref), site_major=site(gf.site_major),
+            site_minor=site(gf.site_minor),
+            minor_bits=np.asarray(gf.minor_bits, np.uint8),
+            exc_indptr=exc_indptr, exc_rid=np.asarray(exc_rid, i32),
+            exc_code=np.asarray(exc_code, np.int8),
+            hole_indptr=np.searchsorted(gf.hole_site, rows).astype(i32),
+            hole_rid=np.asarray(gf.hole_rid, i32),
+            order=order, win_lo=win_lo, win_hi=win_hi,
+            nbr_pos=nbr_pos, nbr_union=nbr_union,
+            bands=band_table(gf.seq_type))
+    with span("snp.copy_in", arg):
+        return PileupWire(**to_device(host, device), kind=kind)
 
 
 def site_depth(gf):
@@ -314,7 +329,6 @@ def snp_pileup(wire, cand_site, cand_pos, lo_c, hi_c, norm, deep_rids=None,
     (B, 4) float32 the one-hot of the candidate's ref base (all zero for
     N). Normal rows count every covering read of the centre site (the
     caller keeps them within maxcov: see snp_caller.pileup_cohorts)."""
-    global SNP_PILEUP_LAUNCHES, SNP_PILEUP_ROWS
     B = _check_inputs(wire, cand_site, cand_pos, lo_c, hi_c, norm,
                       deep_rids, n_valid)
     if cand_site.device.type == "cpu":
@@ -338,9 +352,8 @@ def snp_pileup(wire, cand_site, cand_pos, lo_c, hi_c, norm, deep_rids=None,
             out.data_ptr(), soc.data_ptr(), ref.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("snp_pileup launch failed: cudaError %d" % rc)
-    SNP_PILEUP_LAUNCHES += 1
-    SNP_PILEUP_ROWS += B
-    BY_WIRE[wire.kind] += 1
+    count("k3.launches." + wire.kind)
+    count("k3.rows", B)
     return out, soc, ref
 
 

@@ -27,6 +27,16 @@ With several replicas (SnpCallerState.replicas, one a card) each route
 splits its rows over them in cfg.batch_size slices (sharding.dp_rows):
 the kernel and the CNN of a slice run on its replica, and the
 probabilities are those of one device, bit for bit.
+
+A decode group's host work is recorded in a running torch.profiler trace
+as spans (runtime/metrics.span), each tagged with the group's number,
+the `snp.groups` counter's value once the group is counted: `snp.cohorts`
+(site depth, the depth check, the coverage scale and the cohorts'
+packing), `snp.wire` and `snp.copy_in` (the wire's host layout and the
+payload's copies, pileup/snp_pileup.py), `snp.launch` (queueing K3 and
+the CNN's forwards) and `snp.copy_out` (each copy of probabilities back
+to the host, where the host waits for the device). With no profiler
+running a span costs a flag check.
 """
 
 from __future__ import annotations
@@ -45,10 +55,12 @@ from .models.registry import HAPLOID_TRAIN_COVERAGE
 from .pileup.snp_dense import snp_dense_pileup
 from .pileup.snp_features import (SnpChunkFeatures, SnpGroupFeatures,
                                   get_snp_candidates, get_snp_chunk_features)
-from .pileup.snp_pileup import chunk_wire, group_wire, site_depth, snp_pileup
+from .pileup.snp_pileup import (chunk_wire, group_wire, site_depth,
+                                snp_pileup, to_device)
 from .runtime import sharding, watchdog
 from .runtime.chunker import group_adjacent_chunks
 from .runtime.device import resolve_device
+from .runtime.metrics import count, span
 
 NUM_TO_BASE = "AGTC"  # snpCaller.py:14
 
@@ -133,7 +145,7 @@ def _snp_cnn(replica, ploidy, x, ref, bs):
         (0, 4), device=x.device)
 
 
-def pileup_cohorts(state, gf, cfg):
+def pileup_cohorts(state, gf, cfg, arg=None):
     """K3's launches for one decode group, as infer_snp_group makes them.
 
     The members' rows pack into (ploidy, deep) cohorts, and each
@@ -145,60 +157,63 @@ def pileup_cohorts(state, gf, cfg):
     member dst_mi[k], row dst_j[k]. Normal rows count every covering
     read, which the payload keeps within maxcov (checked here, for both
     devices); deep rows (depth > maxcov) count their host-sampled read
-    ids."""
-    depth = site_depth(gf)
-    cohorts = {}  # (ploidy, deep) -> dict of row lists
-    for mi, (_oi, sec) in enumerate(gf.members):
-        if sec is None or len(sec) == 0:
-            continue
-        B = len(sec)
-        norm = _coverage_norm(state, sec, sec.ploidy, cfg)
-        deep_mask = np.zeros(B, bool)
-        deep_mask[sec.deep_idx] = True
-        for deep in (False, True):
-            rows = sec.deep_idx if deep else np.flatnonzero(~deep_mask)
-            if not len(rows):
+    ids. Spans, tagged with `arg`: snp.cohorts up to the first copy, then
+    the wire's (group_wire) and snp.copy_in for each launch's rows."""
+    with span("snp.cohorts", arg):
+        depth = site_depth(gf)
+        cohorts = {}  # (ploidy, deep) -> dict of row lists
+        for mi, (_oi, sec) in enumerate(gf.members):
+            if sec is None or len(sec) == 0:
                 continue
-            if not deep:
-                _check_depth(depth, sec.cand_site[rows], gf.maxcov)
-            c = cohorts.setdefault((sec.ploidy, deep), {
-                "cand_site": [], "cand_pos": [], "norm": [], "lo": [],
-                "hi": [], "mi": [], "j": [], "rids": []})
-            nr = len(rows)
-            c["cand_site"].append(sec.cand_site[rows])
-            c["cand_pos"].append(sec.cand_pos32[rows])
-            c["norm"].append(norm[rows])
-            c["lo"].append(np.full(nr, sec.nbr_lo, np.int32))
-            c["hi"].append(np.full(nr, sec.nbr_hi, np.int32))
-            c["mi"].append(np.full(nr, mi, np.int32))
-            c["j"].append(rows)
-            if deep:
-                c["rids"].append(sec.deep_rids)
-    if not cohorts:
-        return []
+            B = len(sec)
+            norm = _coverage_norm(state, sec, sec.ploidy, cfg)
+            deep_mask = np.zeros(B, bool)
+            deep_mask[sec.deep_idx] = True
+            for deep in (False, True):
+                rows = sec.deep_idx if deep else np.flatnonzero(~deep_mask)
+                if not len(rows):
+                    continue
+                if not deep:
+                    _check_depth(depth, sec.cand_site[rows], gf.maxcov)
+                c = cohorts.setdefault((sec.ploidy, deep), {
+                    "cand_site": [], "cand_pos": [], "norm": [], "lo": [],
+                    "hi": [], "mi": [], "j": [], "rids": []})
+                nr = len(rows)
+                c["cand_site"].append(sec.cand_site[rows])
+                c["cand_pos"].append(sec.cand_pos32[rows])
+                c["norm"].append(norm[rows])
+                c["lo"].append(np.full(nr, sec.nbr_lo, np.int32))
+                c["hi"].append(np.full(nr, sec.nbr_hi, np.int32))
+                c["mi"].append(np.full(nr, mi, np.int32))
+                c["j"].append(rows)
+                if deep:
+                    c["rids"].append(sec.deep_rids)
+        packed = [(key, {k: np.concatenate(v) for k, v in c.items() if v})
+                  for key, c in sorted(cohorts.items(),
+                                       key=lambda kv: (kv[0][1], kv[0][0]))]
 
     wires = {}  # replica -> the payload on its device
     out = []
-    for (ploidy, deep), c in sorted(cohorts.items(),
-                                    key=lambda kv: (kv[0][1], kv[0][0])):
-        c = {k: np.concatenate(v) for k, v in c.items() if v}
+    for (ploidy, deep), c in packed:
         for r, rows in enumerate(sharding.dp_rows(
                 len(c["mi"]), cfg.batch_size, state.devices)):
             if not len(rows):
                 continue
             dev = state.replicas[r][0]
             if r not in wires:
-                wires[r] = group_wire(gf, dev)
-            put = lambda k, dtype=np.int32: torch.from_numpy(
-                np.ascontiguousarray(c[k][rows], dtype)).to(dev)
-            rids = n_valid = None
-            if deep:
-                rids = put("rids")
+                wires[r] = group_wire(gf, dev, arg)
+            with span("snp.copy_in", arg):
+                host = {k: c[k][rows].astype(np.int32, copy=False) for k in
+                        ("cand_site", "cand_pos", "lo", "hi")
+                        + (("rids",) if deep else ())}
+                host["norm"] = c["norm"][rows].astype(np.float32,
+                                                      copy=False)
+                t = to_device(host, dev)
                 n_valid = torch.full((len(rows),), gf.maxcov,
-                                     dtype=torch.int32, device=dev)
-            args = (wires[r], *(put(k) for k in
-                                ("cand_site", "cand_pos", "lo", "hi")),
-                    put("norm", np.float32), rids, n_valid)
+                                     dtype=torch.int32, device=dev) \
+                    if deep else None
+            args = (wires[r], t["cand_site"], t["cand_pos"], t["lo"],
+                    t["hi"], t["norm"], t.get("rids"), n_valid)
             out.append((ploidy, deep, args, c["mi"][rows], c["j"][rows], r))
     return out
 
@@ -213,22 +228,27 @@ def infer_snp_group(state, gf, cfg, async_mode=False):
     Returns a list of per-member (B, 4) probability arrays aligned with
     gf.members (async_mode=True: a zero-arg finisher returning it; the
     launches are queued on the current stream and the finisher does the
-    device→host copy)."""
+    device→host copy). Counts the group in `snp.groups`, whose value
+    tags its spans."""
+    g = count("snp.groups")
     outs = [np.zeros((len(sec) if sec is not None else 0, 4), np.float32)
             for _oi, sec in gf.members]
     parts = []  # (dst_mi, dst_j, device probs)
     bs = cfg.batch_size
     with torch.inference_mode():
         for ploidy, _deep, args, mis, js, r in pileup_cohorts(state, gf,
-                                                               cfg):
+                                                               cfg, g):
             # ref: the centre-ref one-hot, all zero for N as jax.nn.one_hot's
-            x, _soc, ref = snp_pileup(*args)
-            parts.append((mis, js, _snp_cnn(state.replicas[r], ploidy, x,
-                                            ref, bs)))
+            with span("snp.launch", g):
+                x, _soc, ref = snp_pileup(*args)
+                parts.append((mis, js, _snp_cnn(state.replicas[r], ploidy,
+                                                x, ref, bs)))
 
     def finish():
         for mis, js, probs in parts:
-            pr = probs.cpu().numpy()
+            with span("snp.copy_out", g):
+                pr = probs.cpu().numpy()
+            count("snp.blocking_copies")
             # after the copy-back, not at the launch: a hung kernel stops
             # the beats (launches are asynchronous)
             watchdog.beat()
@@ -272,18 +292,21 @@ def chunk_cohorts(state, feats, cfg, ploidy):
             if r not in wires:
                 wires[r] = chunk_wire(feats, dev)
             wire = wires[r]
-            put = lambda a, dtype=np.int32: torch.from_numpy(
-                np.ascontiguousarray(a, dtype)).to(dev)
             rows = kind_rows[sub]
-            rids = n_valid = None
+            i32 = lambda a: np.asarray(a, np.int32)
+            host = {"cand_site": i32(feats.cand_site[rows]),
+                    "cand_pos": i32(feats.cand_pos32[rows]),
+                    "lo": np.zeros(n, np.int32),
+                    "hi": np.full(n, wire.n_nbrs, np.int32),
+                    "norm": np.asarray(norm[rows], np.float32)}
+            n_valid = None
             if deep:
-                rids = put(feats.deep_rids[sub])
+                host["rids"] = i32(feats.deep_rids[sub])
                 n_valid = torch.full((n,), feats.maxcov, dtype=torch.int32,
                                      device=dev)
-            args = (wire, put(feats.cand_site[rows]),
-                    put(feats.cand_pos32[rows]), put(np.zeros(n)),
-                    put(np.full(n, wire.n_nbrs)),
-                    put(norm[rows], np.float32), rids, n_valid)
+            t = to_device(host, dev)
+            args = (wire, t["cand_site"], t["cand_pos"], t["lo"], t["hi"],
+                    t["norm"], t.get("rids"), n_valid)
             out.append((deep, args, rows, r))
     return out
 
@@ -293,7 +316,9 @@ def _finisher(B, parts, async_mode):
 
     def finish():
         for rows, probs in parts:
-            out[rows] = probs.cpu().numpy()
+            with span("snp.copy_out"):
+                out[rows] = probs.cpu().numpy()
+            count("snp.blocking_copies")
             watchdog.beat()  # after the copy-back (see infer_snp_group)
         return out
 
@@ -333,12 +358,16 @@ def infer_snp_batch(state, batch, cfg, ploidy, async_mode=False):
                                                       devices)):
                 if not len(rows):
                     continue
-                put = lambda a: torch.from_numpy(
-                    np.ascontiguousarray(a[rows])).to(devices[r])
+                t = to_device({
+                    "codes": batch.codes[rows, :R_b],
+                    "read_mask": batch.read_mask[rows, :R_b],
+                    "col_ref": batch.col_ref[rows],
+                    "col_valid": batch.col_valid[rows],
+                    "center_ref": batch.center_ref[rows],
+                    "norm": norm[rows]}, devices[r])
                 x, ref = snp_dense_pileup(
-                    put(batch.codes[:, :R_b]), put(batch.read_mask[:, :R_b]),
-                    put(batch.col_ref), put(batch.col_valid),
-                    put(batch.center_ref), put(norm))
+                    t["codes"], t["read_mask"], t["col_ref"],
+                    t["col_valid"], t["center_ref"], t["norm"])
                 parts.append((rows, _snp_cnn(state.replicas[r], ploidy, x,
                                              ref, cfg.batch_size)))
     return _finisher(B, parts, async_mode)

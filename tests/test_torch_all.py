@@ -134,3 +134,7 @@ def test_profile_writes_a_chrome_trace(fixture):
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
     assert any(e.get("ph") == "X" for e in events)
+    # the stage's own timer and the group path's spans, on the trace
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"snp_calling", "snp.features", "snp.infer_decode", "snp.cohorts",
+            "snp.wire", "snp.copy_in", "snp.launch", "snp.copy_out"} <= spans

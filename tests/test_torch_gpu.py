@@ -50,6 +50,8 @@ from nanocaller_tpu_torch.pileup.snp_features import (BAND_SCHEDULES,
                                                       get_snp_candidates,
                                                       get_snp_chunk_features,
                                                       get_snp_group_payloads)
+from nanocaller_tpu_torch.runtime.metrics import (counters, reset_counters,
+                                                  total)
 from nanocaller_tpu_torch.sim import (BASES, CIGAR_EDGE_LABELS,
                                       DENSE_EDGE_LABELS, TIE_KINDS,
                                       cigar_edge_case, dense_edge_case,
@@ -162,9 +164,9 @@ def test_batch_aligner_cigars_on_card():
         q = r[: n // 3] + "GAT" + r[n // 3 + 2:]
         pairs.append((q, r))
     pairs.append(("", "ACG"))
-    before = K.NW_TB_LAUNCHES
+    before = total("k1.launches")
     got = BatchAligner(device="cuda").align_many(pairs)
-    assert K.NW_TB_LAUNCHES > before
+    assert total("k1.launches") > before
     assert got == [nw_align(q, r)[1] for q, r in pairs]
 
 
@@ -204,10 +206,10 @@ def test_cigar_kernel_matches_twin(Q, R, B):
     ops = K.nw_walk(tb, torch.from_numpy(ql), torch.from_numpy(rl),
                     2 * (Q + R) + 2)
     qd, rd = torch.from_numpy(qraw).cuda(), torch.from_numpy(rraw).cuda()
-    before = K.NW_CIGAR_LAUNCHES
+    before = total("k4.launches")
     runs, counts = K.nw_cigar(ops, qd, rd)
     torch.cuda.synchronize()
-    assert K.NW_CIGAR_LAUNCHES == before + 1
+    assert total("k4.launches") == before + 1
     w_runs, w_counts = K.nw_cigar_reference(ops, qd, rd)
     assert torch.equal(counts, w_counts) and int(counts.min()) >= 0
     keep = torch.arange(Q + R, device="cuda")[None, :] < counts[:, None]
@@ -252,10 +254,10 @@ def test_cigar_kernel_edge_inputs(label, view):
                        for a in cigar_edge_case(label))
     if view == "from_row_1":
         ops, qraw, rraw = ops[1:], qraw[1:], rraw[1:]
-    before = K.NW_CIGAR_LAUNCHES
+    before = total("k4.launches")
     runs, counts = K.nw_cigar(ops, qraw, rraw)
     torch.cuda.synchronize()
-    assert K.NW_CIGAR_LAUNCHES == before + 1
+    assert total("k4.launches") == before + 1
     w_runs, w_counts = K.nw_cigar_reference(ops, qraw, rraw)
     assert torch.equal(counts, w_counts)
     keep = torch.arange(runs.shape[1], device="cuda")[None, :] < \
@@ -273,10 +275,10 @@ def test_batch_aligner_packed_on_card():
     _need_gpu()
     rng = np.random.default_rng(10)
     pairs = _cigar_case(rng, 200, 192, 192) + _cigar_case(rng, 40, 256, 320)
-    before = K.NW_CIGAR_LAUNCHES
+    before = total("k4.launches")
     packed = BatchAligner(*SCORINGS[1], device="cuda").align_many(
         pairs, packed=True)
-    assert K.NW_CIGAR_LAUNCHES > before
+    assert total("k4.launches") > before
     plain = BatchAligner(*SCORINGS[1], device="cuda").align_many(pairs)
     cpu = BatchAligner(*SCORINGS[1], device="cpu").align_many(pairs,
                                                               packed=True)
@@ -322,11 +324,11 @@ def snp_group(tmp_path_factory):
 def _k3_equal(args):
     """K3 against its twin on both outputs (and the ref one-hot),
     exactly; one launch."""
-    before = K3.SNP_PILEUP_LAUNCHES
+    before = total("k3.launches")
     got = K3.snp_pileup(*args)
     want = K3.snp_pileup_reference(*args)
     torch.cuda.synchronize()
-    assert K3.SNP_PILEUP_LAUNCHES == before + 1
+    assert total("k3.launches") == before + 1
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
     return got
@@ -491,14 +493,14 @@ def test_snp_pileup_on_chunk_wire(snp_chunk, maxcov):
     B = len(feats)
     assert B > 20 and (len(feats.deep_idx) > 0) == (maxcov == 24)
     x = torch.zeros((B, 5, 41, 5), device="cuda")
-    launches = K3.BY_WIRE["chunk"]
+    launches = counters().get("k3.launches.chunk", 0)
     cohorts = chunk_cohorts(state, feats, _Cfg(), "diploid")
     assert [d for d, _, _, _ in cohorts] == ([False, True] if maxcov == 24
                                           else [False])
     for _deep, args, rows, _r in cohorts:
         assert args[0].kind == "chunk"
         x[_t(rows)] = _k3_equal(args)[0]
-    assert K3.BY_WIRE["chunk"] == launches + len(cohorts)
+    assert counters().get("k3.launches.chunk", 0) == launches + len(cohorts)
     norm = _coverage_norm(state, feats, "diploid", _Cfg())
     dense = (_t(batch.codes), _t(batch.read_mask), _t(batch.col_ref),
              _t(batch.col_valid), _t(batch.center_ref), _t(norm))
@@ -515,11 +517,11 @@ def test_dense_pileup_matches_twin(R):
     _need_gpu()
     args = [_t(a) for a in random_dense_batch(np.random.default_rng(R),
                                               4096, R)]
-    before = K5.SNP_DENSE_LAUNCHES
+    before = total("k5.launches")
     got = K5.snp_dense_pileup(*args)
     want = K5.snp_dense_pileup_reference(*args)
     torch.cuda.synchronize()
-    assert K5.SNP_DENSE_LAUNCHES == before + 1
+    assert total("k5.launches") == before + 1
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
     assert float(got[0][:, 1:].abs().sum()) > 0
@@ -555,10 +557,10 @@ def test_dense_pileup_edge_inputs(label, view):
     args = [_t(a) for a in dense_edge_case(label)]
     if view == "from_row_1":
         args = [a[1:] for a in args]
-    before = K5.SNP_DENSE_LAUNCHES
+    before = total("k5.launches")
     got = K5.snp_dense_pileup(*args)
     torch.cuda.synchronize()
-    assert K5.SNP_DENSE_LAUNCHES == before + 1
+    assert total("k5.launches") == before + 1
     want = K5.snp_dense_pileup_reference(*args)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
@@ -623,12 +625,12 @@ def test_group_over_caps_on_card(tmp_path, monkeypatch):
         monkeypatch.setattr(sf, "_GROUP_MAX_READS", limit)
         out = str(tmp_path / name)
         os.makedirs(out)
-        K3.reset_counters()
+        reset_counters("k3.")
         call_snps(Config(bam=bam_p, ref=fa, mode="snps", cpu=1, output=out,
                          prefix="p", sample="S", device="cuda"),
                   BamReader(bam_p), [("chr_t", 1, L, "diploid")], [dict(c) for c in chunks],
                   out)
-        runs[name] = (K3.SNP_PILEUP_LAUNCHES,
+        runs[name] = (total("k3.launches"),
                       _snp_records(os.path.join(out,
                                                 "p.unfiltered.snps.vcf.gz")))
     assert runs["capped"][0] == 2 and runs["whole"][0] == 1
@@ -666,16 +668,15 @@ def test_dag_cpu2_on_card(tmp_path):
         depth=30, read_len=3000)
     outs = {}
     for dev in ("cuda", "cpu"):
-        K.reset_counters()
-        K3.reset_counters()
+        reset_counters(("k1.", "k2.", "k3.", "k4."))
         with chip_smoke.CudaContextWatch() as watch:
             outs[dev] = run(Config(
                 bam=bam_p, ref=fa, mode="all", cpu=2, haploid_X=True,
                 output=str(tmp_path / dev), prefix="p", sample="S",
                 device=dev, suppress_progress=True))
         if dev == "cuda":
-            assert K3.SNP_PILEUP_LAUNCHES > 0 and K.NW_TB_LAUNCHES > 0 \
-                and K.NW_WALK_LAUNCHES > 0
+            assert total("k3.launches") > 0 and total("k1.launches") > 0 \
+                and total("k2.launches") > 0
             assert len(watch.smi_pids) <= 1 and not watch.cuda_children
             assert len(watch.workers) >= 2
     unf = lambda p: p.replace(".snps.vcf.gz", ".unfiltered.snps.vcf.gz")
@@ -710,9 +711,9 @@ def test_two_replicas_on_card(snp_group, snp_chunk):
                                 devices=["cuda:0", "cuda:0"])
     assert len(two.replicas) == 2
     for gf in groups.values():
-        before = K3.SNP_PILEUP_LAUNCHES
+        before = total("k3.launches")
         got = infer_snp_group(two, gf, _DpCfg())
-        assert K3.SNP_PILEUP_LAUNCHES - before == \
+        assert total("k3.launches") - before == \
             len(pileup_cohorts(two, gf, _DpCfg())) > \
             len(pileup_cohorts(one, gf, _DpCfg()))
         for g, w in zip(got, infer_snp_group(one, gf, _DpCfg())):
@@ -722,9 +723,9 @@ def test_two_replicas_on_card(snp_group, snp_chunk):
     np.testing.assert_array_equal(
         infer_snp_chunk(two, feats, _DpCfg(), "diploid"),
         infer_snp_chunk(one, feats, _DpCfg(), "diploid"))
-    before = K5.SNP_DENSE_LAUNCHES
+    before = total("k5.launches")
     got = infer_snp_batch(two, batch, _DpCfg(), "haploid")
-    assert K5.SNP_DENSE_LAUNCHES - before == 2
+    assert total("k5.launches") - before == 2
     np.testing.assert_array_equal(
         got, infer_snp_batch(one, batch, _DpCfg(), "haploid"))
     x = np.random.default_rng(3).random((100, 15, 128, 2), np.float32)
@@ -859,13 +860,12 @@ def test_call_chunk_on_card(tmp_path, ploidy, dedup):
     for dev in ("cuda", "cpu"):
         cfg = Config(bam=bam_p, ref=fa, device=dev, dedup_transfer=dedup)
         state = SnpCallerState.create("ONT-HG002", device=dev)
-        K3.reset_counters()
-        K5.reset_counters()
+        reset_counters(("k3.", "k5."))
         lines[dev] = call_chunk(state, BamReader(bam_p), FastaFile(fa),
                                 chunk, cfg)
         if dev == "cuda":
             torch.cuda.synchronize()
-            k3, k5 = K3.BY_WIRE["chunk"], K5.SNP_DENSE_LAUNCHES
+            k3, k5 = counters().get("k3.launches.chunk", 0), total("k5.launches")
             assert (k3 > 0, k5 > 0) == (dedup, not dedup), (k3, k5)
     assert len(lines["cuda"]) > 10
     chip_smoke.compare_lines(lines["cuda"], lines["cpu"], "snp", "call_chunk")
@@ -895,12 +895,12 @@ def test_call_indel_chunk_on_card(tmp_path, ploidy):
     for dev in ("cuda", "cpu"):
         cfg = Config(bam=bam_p, ref=fa, device=dev)
         state = IndelCallerState.create("ONT-HG002", device=dev)
-        K.reset_counters()
+        reset_counters(("k1.", "k2.", "k4."))
         lines[dev] = call_indel_chunk(state, BamReader(bam_p), FastaFile(fa),
                                       chunk, cfg)
         if dev == "cuda":
-            assert min(K.NW_TB_LAUNCHES, K.NW_WALK_LAUNCHES,
-                       K.NW_CIGAR_LAUNCHES) >= 1
+            assert min(total("k1.launches"), total("k2.launches"),
+                       total("k4.launches")) >= 1
     assert len(lines["cuda"]) >= 3
     chip_smoke.compare_lines(lines["cuda"], lines["cpu"], "indel",
                              "call_indel_chunk")

@@ -32,6 +32,7 @@ from nanocaller_tpu.align.batch_nw import _walk_to_cigar, refine_diag_ops
 from nanocaller_tpu.pileup.snp_features import assemble_matrices_np
 from nanocaller_tpu_torch.align import nw_kernels as K
 from nanocaller_tpu_torch.pileup import snp_dense as K5
+from nanocaller_tpu_torch.runtime.metrics import total
 from nanocaller_tpu_torch.sim import (CIGAR_EDGE_LABELS, DENSE_EDGE_LABELS,
                                       cigar_edge_case, dense_edge_case)
 
@@ -63,10 +64,10 @@ def test_cigar_twin_matches_host_walk(label):
     B, T = ops.shape
     Q, R = qraw.shape[1], rraw.shape[1]
     assert T == 2 * (Q + R) + 2
-    before = K.NW_CIGAR_LAUNCHES
+    before = total("k4.launches")
     runs, counts = K.nw_cigar(torch.from_numpy(ops), torch.from_numpy(qraw),
                               torch.from_numpy(rraw))
-    assert K.NW_CIGAR_LAUNCHES == before  # the twin, not a launch
+    assert total("k4.launches") == before  # the twin, not a launch
     runs, counts = runs.numpy(), counts.numpy()
     bad = _bad_rows(ops, Q, R)
     np.testing.assert_array_equal(counts < 0, bad)
@@ -123,10 +124,10 @@ def test_dense_twin_matches_assembly(label):
     codes, mask, col_ref, col_valid, center_ref, norm = \
         dense_edge_case(label)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
-    before = K5.SNP_DENSE_LAUNCHES
+    before = total("k5.launches")
     x, ref = K5.snp_dense_pileup(t(codes), t(mask), t(col_ref),
                                  t(col_valid), t(center_ref), t(norm))
-    assert K5.SNP_DENSE_LAUNCHES == before
+    assert total("k5.launches") == before
     batch = types.SimpleNamespace(codes=codes, read_mask=mask,
                                   col_ref=col_ref, col_valid=col_valid,
                                   center_ref=center_ref)

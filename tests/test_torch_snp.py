@@ -37,6 +37,7 @@ from nanocaller_tpu_torch.pileup.engine import decode_reads
 from nanocaller_tpu_torch.pileup.snp_features import (BAND_SCHEDULES,
                                                       CENTER, WIDTH,
                                                       get_snp_group_payloads)
+from nanocaller_tpu_torch.runtime.metrics import total
 from nanocaller_tpu_torch.sim import random_group_wire
 
 from fixtures import BASES, make_fixture, random_seq
@@ -419,9 +420,9 @@ def test_wrapper_rejects_bad_inputs():
         setattr(bad_w, field, getattr(w, field)[::-1].copy())
         with pytest.raises(ValueError, match=field + " must be sorted"):
             K3.group_wire(bad_w, "cpu")
-    before = K3.SNP_PILEUP_LAUNCHES
+    before = total("k3.launches")
     K3.snp_pileup(wire, *args)
-    assert K3.SNP_PILEUP_LAUNCHES == before  # the twin is no launch
+    assert total("k3.launches") == before  # the twin is no launch
 
 
 @pytest.mark.parametrize("seed", range(3))

@@ -27,6 +27,7 @@ from nanocaller_tpu_torch.io.fasta import FastaFile
 from nanocaller_tpu_torch.pileup import snp_dense as K5
 from nanocaller_tpu_torch.pileup import snp_features as p_sf
 from nanocaller_tpu_torch.pileup import snp_pileup as K3
+from nanocaller_tpu_torch.runtime.metrics import total
 
 from fixtures import BASES, make_fixture, random_seq
 from torch_threads import _torch_threads  # noqa: F401 (autouse)
@@ -240,9 +241,9 @@ def test_dense_pileup_equals_oracle(payloads, case):
     launch."""
     batch = payloads[case, True][1]
     norm = _norm(batch, 9)
-    before = K5.SNP_DENSE_LAUNCHES
+    before = total("k5.launches")
     x, ref = _dense_x(batch, norm)
-    assert K5.SNP_DENSE_LAUNCHES == before
+    assert total("k5.launches") == before
     want = p_sf.assemble_matrices_np(batch)
     want[:, 1:, :, :4] *= norm[:, None, None, None]
     np.testing.assert_array_equal(x.numpy(), want)
