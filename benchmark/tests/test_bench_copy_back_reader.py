@@ -1,0 +1,47 @@
+"""The reader of the port's queued copies back
+(snp.async_copy_backs_per_group) on a filled counter registry: the
+ratio, and None where the run has nothing to read, the port counting
+no such copies included."""
+
+import pytest
+
+from nanocaller_tpu_torch.runtime import metrics
+from nbench import harness
+
+NAME = "snp.async_copy_backs_per_group"
+
+
+def _ctx(kind="snp_stream", traced=True):
+    trace = {"spans": {}, "window_s": 1.0, "busy_s": 0.5} if traced \
+        else None
+    return {"traffic": {"kind": kind}, "trace": trace,
+            "traced": {"sent": [0, 1], "units": 2} if traced else None}
+
+
+@pytest.fixture
+def registry():
+    saved = metrics.counters()
+    metrics.reset_counters()
+    yield
+    metrics.reset_counters()
+    for name, n in saved.items():
+        metrics.count(name, n)
+
+
+@pytest.mark.parametrize("groups,copies,want", [(8, 8, 1.0), (6, 9, 1.5)])
+def test_reader_ratio(registry, groups, copies, want):
+    metrics.count("snp.groups", groups)
+    metrics.count("snp.async_copy_backs", copies)
+    assert harness.Spec().reader(NAME)(_ctx()) == pytest.approx(
+        want, rel=1e-12)
+
+
+def test_reader_has_nothing_to_read(registry):
+    read = harness.Spec().reader(NAME)
+    # a port that queues no copy back (the CPU, or an older port)
+    metrics.count("snp.groups", 8)
+    metrics.count("snp.blocking_copies", 8 * 23)
+    assert read(_ctx()) is None
+    metrics.count("snp.async_copy_backs", 8)
+    assert read(_ctx(kind="other")) is None
+    assert read(_ctx(traced=False)) is None

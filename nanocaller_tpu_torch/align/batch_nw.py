@@ -24,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from ..runtime.device import resolve_device
+from ..runtime.device import resolve_device, to_host
 from .nw import _CHAR_CODE, nw_align, pack_cigar
 from .nw_kernels import nw_cigar, nw_tb, nw_walk
 
@@ -95,15 +95,6 @@ def encode_pairs(pairs, Q, R):
     return _CHAR_CODE[qraw], _CHAR_CODE[rraw], qlens, rlens
 
 
-def _to_host(t):
-    """Queue t's copy into pinned host memory (t itself on the CPU)."""
-    if t.device.type == "cpu":
-        return t
-    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    h.copy_(t, non_blocking=True)
-    return h
-
-
 class BatchAligner:
     """Pads string pairs into fixed (Q, R) buckets, runs K1, K2 and K4 on
     `device` and returns cigars identical to nw.nw_align's. On
@@ -165,7 +156,8 @@ class BatchAligner:
             if (counts < 0).any():
                 raise RuntimeError("nw_cigar: an op stream reads past its "
                                    "pair's bytes")
-            cut.append((sub, counts, _to_host(runs[:, : int(counts.max())])))
+            host, _done = to_host(runs[:, : int(counts.max())])
+            cut.append((sub, counts, host))
         self._sync()
         for sub, counts, runs in cut:
             h = runs.numpy().view(np.uint32).copy()
@@ -197,7 +189,7 @@ class BatchAligner:
                       2 * (Q + R) + 2)
         runs, counts = nw_cigar(ops, up(qraw), up(rraw))
         self.timers["device"] += time.perf_counter() - t1
-        return runs, _to_host(counts)
+        return runs, to_host(counts)[0]
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -36,6 +36,23 @@ def resolve_device(device="cuda"):
     return dev
 
 
+def to_host(t):
+    """Queue t's copy into pinned host memory on the current stream of
+    t's device, behind what is queued there → (the host tensor, a CUDA
+    event recorded on that stream right after the copy); a CPU tensor is
+    returned as it is, with no event. The host tensor holds t's values
+    once the event has completed (or the stream has been synchronised);
+    PyTorch's caching host allocator hands its pinned block out again
+    only after the copy has completed."""
+    if t.device.type == "cpu":
+        return t, None
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    return h, done
+
+
 def cpu_settings():
     """What this process runs torch's CPU ops with: the intra-op thread
     count, OpenMP's wait policy as the environment gives it (the package

@@ -34,9 +34,13 @@ the `snp.groups` counter's value once the group is counted: `snp.cohorts`
 (site depth, the depth check, the coverage scale and the cohorts'
 packing), `snp.wire` and `snp.copy_in` (the wire's host layout and the
 payload's copies, pileup/snp_pileup.py), `snp.launch` (queueing K3 and
-the CNN's forwards) and `snp.copy_out` (each copy of probabilities back
-to the host, where the host waits for the device). With no profiler
-running a span costs a flag check.
+the CNN's forwards) and `snp.copy_out` (the finisher's wait for each
+part's probabilities on the host). With no profiler running a span costs
+a flag check.
+
+Each part's probabilities come back through _CopyBack: on CUDA a copy
+queued behind the part's CNN, whose own event the finisher waits on, so
+it never waits for work queued later (the next group's).
 """
 
 from __future__ import annotations
@@ -59,7 +63,7 @@ from .pileup.snp_pileup import (chunk_wire, group_wire, site_depth,
                                 snp_pileup, to_device)
 from .runtime import sharding, watchdog
 from .runtime.chunker import group_adjacent_chunks
-from .runtime.device import resolve_device
+from .runtime.device import resolve_device, to_host
 from .runtime.metrics import count, span
 
 NUM_TO_BASE = "AGTC"  # snpCaller.py:14
@@ -145,6 +149,31 @@ def _snp_cnn(replica, ploidy, x, ref, bs):
         (0, 4), device=x.device)
 
 
+class _CopyBack:
+    """A part's (B, 4) probabilities on their way to the host. On CUDA
+    the copy is queued at once, into pinned memory on the current stream
+    of the part's device (runtime/device.to_host), with an event of its
+    own after it, and counted in snp.async_copy_backs; the device tensor
+    is kept until the copy has been read. On the CPU the tensor is the
+    host's already."""
+
+    def __init__(self, probs):
+        self.probs = probs
+        self.host, self.done = to_host(probs)
+        if self.done is not None:
+            count("snp.async_copy_backs")
+
+    def numpy(self):
+        """The probabilities as a numpy array: waits for the part's own
+        copy (never for the stream, which may hold later work); on the
+        CPU counts one snp.blocking_copies."""
+        if self.done is None:
+            count("snp.blocking_copies")
+        else:
+            self.done.synchronize()
+        return self.host.numpy()
+
+
 def pileup_cohorts(state, gf, cfg, arg=None):
     """K3's launches for one decode group, as infer_snp_group makes them.
 
@@ -227,13 +256,13 @@ def infer_snp_group(state, gf, cfg, async_mode=False):
 
     Returns a list of per-member (B, 4) probability arrays aligned with
     gf.members (async_mode=True: a zero-arg finisher returning it; the
-    launches are queued on the current stream and the finisher does the
-    device→host copy). Counts the group in `snp.groups`, whose value
-    tags its spans."""
+    launches and each part's copy back (_CopyBack) are queued on the
+    current stream, and the finisher waits for the copies). Counts the
+    group in `snp.groups`, whose value tags its spans."""
     g = count("snp.groups")
     outs = [np.zeros((len(sec) if sec is not None else 0, 4), np.float32)
             for _oi, sec in gf.members]
-    parts = []  # (dst_mi, dst_j, device probs)
+    parts = []  # (dst_mi, dst_j, _CopyBack)
     bs = cfg.batch_size
     with torch.inference_mode():
         for ploidy, _deep, args, mis, js, r in pileup_cohorts(state, gf,
@@ -241,14 +270,13 @@ def infer_snp_group(state, gf, cfg, async_mode=False):
             # ref: the centre-ref one-hot, all zero for N as jax.nn.one_hot's
             with span("snp.launch", g):
                 x, _soc, ref = snp_pileup(*args)
-                parts.append((mis, js, _snp_cnn(state.replicas[r], ploidy,
-                                                x, ref, bs)))
+                parts.append((mis, js, _CopyBack(_snp_cnn(
+                    state.replicas[r], ploidy, x, ref, bs))))
 
     def finish():
-        for mis, js, probs in parts:
+        for mis, js, back in parts:
             with span("snp.copy_out", g):
-                pr = probs.cpu().numpy()
-            count("snp.blocking_copies")
+                pr = back.numpy()
             # after the copy-back, not at the launch: a hung kernel stops
             # the beats (launches are asynchronous)
             watchdog.beat()
@@ -315,10 +343,9 @@ def _finisher(B, parts, async_mode):
     out = np.zeros((B, 4), np.float32)
 
     def finish():
-        for rows, probs in parts:
+        for rows, back in parts:
             with span("snp.copy_out"):
-                out[rows] = probs.cpu().numpy()
-            count("snp.blocking_copies")
+                out[rows] = back.numpy()
             watchdog.beat()  # after the copy-back (see infer_snp_group)
         return out
 
@@ -330,14 +357,15 @@ def infer_snp_chunk(state, feats, cfg, ploidy, async_mode=False):
     wire (chunk_cohorts), the CNN in cfg.batch_size rows.
 
     Returns the (B, 4) probabilities in candidate order (async_mode=True:
-    a zero-arg finisher returning them; the launches are queued on the
-    current stream and the finisher does the device→host copy)."""
+    a zero-arg finisher returning them; the launches and the copies back
+    are queued on the current stream, and the finisher waits for the
+    copies)."""
     parts = []
     with torch.inference_mode():
         for _deep, args, rows, r in chunk_cohorts(state, feats, cfg, ploidy):
             x, _soc, ref = snp_pileup(*args)
-            parts.append((rows, _snp_cnn(state.replicas[r], ploidy, x, ref,
-                                         cfg.batch_size)))
+            parts.append((rows, _CopyBack(_snp_cnn(
+                state.replicas[r], ploidy, x, ref, cfg.batch_size))))
     return _finisher(len(feats), parts, async_mode)
 
 
@@ -368,8 +396,8 @@ def infer_snp_batch(state, batch, cfg, ploidy, async_mode=False):
                 x, ref = snp_dense_pileup(
                     t["codes"], t["read_mask"], t["col_ref"],
                     t["col_valid"], t["center_ref"], t["norm"])
-                parts.append((rows, _snp_cnn(state.replicas[r], ploidy, x,
-                                             ref, cfg.batch_size)))
+                parts.append((rows, _CopyBack(_snp_cnn(
+                    state.replicas[r], ploidy, x, ref, cfg.batch_size))))
     return _finisher(B, parts, async_mode)
 
 
@@ -524,9 +552,9 @@ def call_snps(cfg, bam, regions_list, chunks, out_dir, progress=None,
     reader). This process infers each payload on the device by its type
     (SnpGroupFeatures: infer_snp_group; a chunk's SnpChunkFeatures or
     SnpBatch: infer_snp_any) with up to cfg.snp_pipeline_depth payloads
-    in flight (a payload's device→host copy and decode wait until the
-    next one's launches are queued); lines are stored by chunk index,
-    so the order of arrival changes nothing. With a RunManifest,
+    in flight (a payload's wait for its copies back and its decode come
+    after the next one's launches are queued); lines are stored by chunk
+    index, so the order of arrival changes nothing. With a RunManifest,
     completed chunks are reloaded from their shard files. The
     `snp.features` timer is this process's wait for the next task's
     payloads. Returns the PASS VCF path (snpCaller.py:287)."""

@@ -59,7 +59,8 @@ from nanocaller_tpu_torch.sim import (BASES, CIGAR_EDGE_LABELS,
                                       random_dense_batch, random_group_wire,
                                       random_seq, tie_heavy_pairs, write_bam)
 from nanocaller_tpu_torch.snp_caller import (SnpCallerState, _coverage_norm,
-                                             chunk_cohorts, pileup_cohorts)
+                                             chunk_cohorts, infer_snp_chunk,
+                                             infer_snp_group, pileup_cohorts)
 
 from torch_threads import _torch_threads  # noqa: F401 (autouse)
 
@@ -687,6 +688,78 @@ def test_dag_cpu2_on_card(tmp_path):
         assert n > 0
     chip_smoke.compare_records(unf(outs["cuda"]["snps"]),
                                unf(outs["cpu"]["snps"]), "snp")
+
+
+@pytest.mark.cuda
+def test_groups_one_ahead_on_card(snp_group):
+    """infer_snp_group's async finishers, each called after the next
+    group's launches are queued (as call_snps runs them), give the
+    synchronous call's arrays bit for bit. Each part's copy back is
+    queued, one snp.async_copy_backs a part; the blocking copies are the
+    copies to the device alone."""
+    state, groups = snp_group
+    order = ["diploid", "haploid", "diploid"]
+    want = {p: infer_snp_group(state, gf, _Cfg()) for p, gf in groups.items()}
+    torch.cuda.synchronize()
+    reset_counters("snp.")
+    parts = sum(len(pileup_cohorts(state, groups[p], _Cfg())) for p in order)
+    copies_in = counters("snp.")
+    assert parts > len(order)  # deep cohorts: two parts a group
+    torch.cuda.synchronize()
+    reset_counters("snp.")
+    got, pending = [], None
+    for p in order:
+        fin = infer_snp_group(state, groups[p], _Cfg(), async_mode=True)
+        if pending is not None:
+            got.append(pending())
+        pending = fin
+    got.append(pending())
+    for p, outs in zip(order, got):
+        assert len(outs) == len(want[p])
+        for g, w in zip(outs, want[p]):
+            np.testing.assert_array_equal(g, w)
+    assert counters("snp.") == dict(copies_in, **{
+        "snp.groups": len(order), "snp.async_copy_backs": parts})
+
+
+# clock cycles of torch.cuda._sleep: ~0.2 s at the H100's 1.98 GHz
+SLEEP_CYCLES = 400_000_000
+
+
+def _finish_under_later_work(run):
+    """run() queues a route's launches and copies back and returns its
+    finisher; with a sleep queued behind them on the same stream, the
+    finisher returns while the sleep still runs → what it returned."""
+    torch.cuda.synchronize()
+    fin = run()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    got = fin()
+    later_work_left = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert later_work_left
+    return got
+
+
+@pytest.mark.cuda
+def test_group_copy_back_does_not_wait_on_later_work(snp_group):
+    state, groups = snp_group
+    gf = groups["diploid"]
+    want = infer_snp_group(state, gf, _Cfg())
+    got = _finish_under_later_work(
+        lambda: infer_snp_group(state, gf, _Cfg(), async_mode=True))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_chunk_copy_back_does_not_wait_on_later_work(snp_chunk):
+    state, chunks = snp_chunk
+    feats = chunks[24][0]
+    want = infer_snp_chunk(state, feats, _Cfg(), "diploid")
+    np.testing.assert_array_equal(_finish_under_later_work(
+        lambda: infer_snp_chunk(state, feats, _Cfg(), "diploid",
+                                async_mode=True)), want)
 
 
 class _DpCfg:

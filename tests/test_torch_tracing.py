@@ -181,6 +181,38 @@ def test_group_copy_counts(groups, state, case):
     assert c["snp.blocking_copies"] - c["snp.groups"] * parts == 2 * copies
 
 
+def test_groups_one_ahead_match_the_synchronous_path(groups, state):
+    """Two groups interleaved one ahead through the async finishers, as
+    call_snps runs them: each finisher is called after the next group's
+    launches are queued, and gives the synchronous path's arrays. On the
+    CPU no copy back is queued: nothing counts in snp.async_copy_backs,
+    and each part's read counts one blocking copy."""
+    want = {name: P.infer_snp_group(state, gf, Cfg())
+            for name, gf in groups.items()}
+    parts = {name: len(P.pileup_cohorts(state, gf, Cfg()))
+             for name, gf in groups.items()}
+    metrics.reset_counters("snp.")
+    order = ["normal", "deep", "normal"]
+    got, pending = [], None
+    for name in order:
+        fin = P.infer_snp_group(state, groups[name], Cfg(), async_mode=True)
+        if pending is not None:
+            got.append(pending())
+        pending = fin
+    got.append(pending())
+    for name, outs in zip(order, got):
+        assert len(outs) == len(want[name])
+        for g, w in zip(outs, want[name]):
+            assert g.dtype == np.float32 and np.array_equal(g, w)
+    c = metrics.counters("snp.")
+    assert "snp.async_copy_backs" not in c
+    h2d = c["snp.blocking_copies"] - sum(parts[n] for n in order)
+    metrics.reset_counters("snp.")
+    for name in order:
+        P.pileup_cohorts(state, groups[name], Cfg())
+    assert metrics.counters("snp.")["snp.blocking_copies"] == h2d
+
+
 def test_empty_arrays_are_no_copies():
     """A wire without holes sends 17 fields: PyTorch copies nothing for
     the empty hole_rid, so it is no blocking copy, and has no bytes."""
