@@ -22,7 +22,11 @@ three paths, as the JAX package's payload types choose them:
 - a chunk's dense SnpBatch (--no_dedup_transfer, a chunk over
   _TABLE_CELL_CAP): kernel K5 (pileup/snp_dense.py) (infer_snp_batch).
 The three build the same x, bit for bit, for the same candidates; the
-SNP CNN (models/snp.py, torch/cuDNN) runs on it in cfg.batch_size rows.
+SNP CNN (models/snp.py, torch/cuDNN) runs on it in cfg.batch_size rows
+(cnn_in_slices). On CUDA each full slice replays a CUDA graph of the
+forward, captured once a replica, ploidy and batch size (_CnnGraph):
+one runtime call in place of the forward's ~73, the same kernels, so
+the same probabilities bit for bit; the last, shorter slice runs eagerly.
 With several replicas (SnpCallerState.replicas, one a card) each route
 splits its rows over them in cfg.batch_size slices (sharding.dp_rows):
 the kernel and the CNN of a slice run on its replica, and the
@@ -34,9 +38,10 @@ the `snp.groups` counter's value once the group is counted: `snp.cohorts`
 (site depth, the depth check, the coverage scale and the cohorts'
 packing), `snp.wire` and `snp.copy_in` (the wire's host layout and the
 payload's copies, pileup/snp_pileup.py), `snp.launch` (queueing K3 and
-the CNN's forwards) and `snp.copy_out` (the finisher's wait for each
-part's probabilities on the host). With no profiler running a span costs
-a flag check.
+the CNN's forwards: graph replays, each counted in
+`snp.cnn_graph_replays`, and the eager tail) and `snp.copy_out` (the
+finisher's wait for each part's probabilities on the host). With no
+profiler running a span costs a flag check.
 
 Each part's probabilities come back through _CopyBack: on CUDA a copy
 queued behind the part's CNN, whose own event the finisher waits on, so
@@ -91,6 +96,9 @@ class SnpCallerState:
     replicas: list
     hap_train_coverage: float = HAPLOID_TRAIN_COVERAGE
 
+    def __post_init__(self):
+        self.replicas = [SnpReplica(r) for r in self.replicas]
+
     @property
     def devices(self):
         return [dev for dev, _m, _h in self.replicas]
@@ -136,17 +144,94 @@ def _check_depth(depth, rows, maxcov):
         raise ValueError("a normal row is deeper than maxcov=%d" % maxcov)
 
 
+class SnpReplica(tuple):
+    """One replica of a SnpCallerState: the (device, model, hap_model)
+    that sharding.replicas gives, and the CUDA graphs of its CNN's full
+    slices (`graphs`, by (ploidy, rows)), captured on first use into one
+    memory pool of its own. A replay's output is read before the next
+    replay is queued (_CnnGraph), so the graphs may share the pool."""
+
+    def __new__(cls, replica):
+        rep = super().__new__(cls, replica)
+        rep.graphs = {}
+        rep.pool = None
+        return rep
+
+    def cnn_graph(self, ploidy, forward, xs, rs):
+        """The graph of `forward` at (ploidy, len(xs)) on xs's device,
+        captured now if this replica has none yet."""
+        key = (ploidy, len(xs))
+        if key not in self.graphs:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            self.graphs[key] = _CnnGraph(forward, xs, rs, self.pool)
+        return self.graphs[key]
+
+
+class _CnnGraph:
+    """A CNN forward over a fixed number of rows, captured as a CUDA graph
+    over static input buffers. A call copies its slice into them, replays
+    the graph and copies the static output into the caller's rows, each
+    on the device's current stream, so that the next call's copies and
+    replay, which rewrite the buffers, queue behind this one's. Capture
+    synchronises the device; it happens at a replica's first full slice
+    of each ploidy and batch size."""
+
+    def __init__(self, forward, xs, rs, pool):
+        dev = xs.device
+        with torch.cuda.device(dev):
+            self.x = torch.zeros_like(xs)
+            self.ref = torch.zeros_like(rs)
+            stream = torch.cuda.Stream(dev)
+            # cuDNN's and cuBLAS's lazy set-up runs before the capture
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                forward(self.x, self.ref)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.out = forward(self.x, self.ref)
+
+    def __call__(self, xs, rs, dst):
+        self.x.copy_(xs)
+        self.ref.copy_(rs)
+        self.graph.replay()
+        dst.copy_(self.out)
+        count("snp.cnn_graph_replays")
+
+
+def cnn_in_slices(x, ref, bs, forward, full=None):
+    """The (B, 4) probabilities of x (B, 5, 41, 5) and ref (B, 4) in
+    slices of bs rows, each written into its rows of one tensor on x's
+    device: a full slice by full(xs, rs, dst) where `full` is given (a
+    _CnnGraph), every other slice, and the last, shorter one, by
+    forward(xs, rs)."""
+    probs = torch.empty((x.shape[0], 4), device=x.device)
+    for lo in range(0, x.shape[0], bs):
+        xs, rs, dst = x[lo:lo + bs], ref[lo:lo + bs], probs[lo:lo + bs]
+        if full is not None and len(xs) == bs:
+            full(xs, rs, dst)
+        else:
+            dst.copy_(forward(xs, rs))
+    return probs
+
+
 def _snp_cnn(replica, ploidy, x, ref, bs):
     """A replica's SNP CNN over x (B, 5, 41, 5) in slices of bs rows →
-    the (B, 4) probabilities on x's device."""
+    the (B, 4) probabilities on x's device (cnn_in_slices). On CUDA each
+    full slice replays the replica's graph of the forward (SnpReplica);
+    on the CPU every slice runs eagerly."""
     _dev, model, hap_model = replica
-    probs = []
-    for lo in range(0, x.shape[0], bs):
-        xs, rs = x[lo:lo + bs], ref[lo:lo + bs]
-        probs.append(hap_model(xs, rs) if ploidy == "haploid"
-                     else model(xs, rs)[0][:, :, 1])
-    return torch.cat(probs) if probs else torch.zeros(
-        (0, 4), device=x.device)
+    if ploidy == "haploid":
+        forward = hap_model
+    else:
+        def forward(xs, rs):
+            return model(xs, rs)[0][:, :, 1]
+    full = None
+    if x.device.type == "cuda" and x.shape[0] >= bs:
+        full = replica.cnn_graph(ploidy, forward, x[:bs], ref[:bs])
+    return cnn_in_slices(x, ref, bs, forward, full)
 
 
 class _CopyBack:

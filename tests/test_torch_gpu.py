@@ -17,7 +17,9 @@ no row, and the wrapper's refusals; K4 and K5 on their hand-built edge
 inputs (sim.cigar_edge_case, sim.dense_edge_case), whole and from their
 second row (rows off the 16-byte grid); a SNP decode group over the payload
 caps, sent member by member (one K3 launch a member), against its
-uncapped run;
+uncapped run; the SNP CNN's full slices as CUDA graph replays against
+the eager forward, bit for bit, at the benchmark group's shape and with
+groups of both ploidies queued one ahead;
 `--mode all --cpu 2` on cuda against cpu, with no CUDA context in a
 worker; two replicas on the card (bit-identical probabilities, one K3 or
 K5 launch a cohort and replica) and two `--num_processes 2` processes
@@ -38,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 
+from nanocaller_tpu_torch import snp_caller as P
 from nanocaller_tpu_torch.align import nw_kernels as K
 from nanocaller_tpu_torch.align.batch_nw import (BatchAligner, encode_pairs,
                                                  pad_bytes)
@@ -720,6 +723,88 @@ def test_groups_one_ahead_on_card(snp_group):
             np.testing.assert_array_equal(g, w)
     assert counters("snp.") == dict(copies_in, **{
         "snp.groups": len(order), "snp.async_copy_backs": parts})
+
+
+def _eager_cnn(replica, ploidy, x, ref, bs):
+    """_snp_cnn with every slice eager: no graph."""
+    _dev, model, hap_model = replica
+    forward = hap_model if ploidy == "haploid" \
+        else (lambda xs, rs: model(xs, rs)[0][:, :, 1])
+    return P.cnn_in_slices(x, ref, bs, forward)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ploidy", ["diploid", "haploid"])
+def test_cnn_graph_matches_eager_on_card(ploidy):
+    """The benchmark group's shape, 7 full slices of 4,096 rows and a
+    tail of 2,704: the graph path's probabilities equal the eager
+    forward's slice by slice, bit for bit. One graph is captured for the
+    replica at (ploidy, 4096) and replayed once a full slice; a second
+    call with other inputs replays it again and still matches."""
+    _need_gpu()
+    bs = 4096
+    state = SnpCallerState.create("ONT-HG002", device="cuda", devices=None)
+    rep = state.replicas[0]
+    g = torch.Generator(device="cuda").manual_seed(25)
+    reset_counters("snp.cnn_graph_replays")
+    for trial in range(2):
+        x = torch.rand((7 * bs + 2704, 5, 41, 5), device="cuda",
+                       generator=g) * (trial + 1)
+        ref = torch.nn.functional.one_hot(torch.randint(
+            0, 4, (x.shape[0],), device="cuda", generator=g), 4).float()
+        with torch.inference_mode():
+            got = P._snp_cnn(rep, ploidy, x, ref, bs)
+            for lo in range(0, x.shape[0], bs):
+                xs, rs = x[lo:lo + bs], ref[lo:lo + bs]
+                want = rep[2](xs, rs) if ploidy == "haploid" \
+                    else rep[1](xs, rs)[0][:, :, 1]
+                assert torch.equal(got[lo:lo + bs], want), (trial, lo)
+        torch.cuda.synchronize()
+        assert list(rep.graphs) == [(ploidy, bs)]
+        assert counters("snp.cnn_graph_replays") == {
+            "snp.cnn_graph_replays": 7 * (trial + 1)}
+
+
+class _SmallCfg:
+    # several full slices a cohort (the fixture's have 37 and 68 rows),
+    # so that replays follow each other
+    batch_size = 16
+    disable_coverage_normalization = False
+
+
+@pytest.mark.cuda
+def test_groups_one_ahead_match_eager_on_card(snp_group, monkeypatch):
+    """Groups of both ploidies queued one ahead (async_mode=True), each
+    finisher called after the next group's launches: every group's
+    probabilities equal those of the eager forward, bit for bit, so no
+    replay read a static buffer that a later one had rewritten."""
+    state, groups = snp_group
+    order = ["diploid", "haploid", "diploid", "haploid"]
+    with monkeypatch.context() as m:
+        m.setattr(P, "_snp_cnn", _eager_cnn)
+        want = {p: infer_snp_group(state, gf, _SmallCfg())
+                for p, gf in groups.items()}
+    replays = sum(len(mis) // _SmallCfg.batch_size for p in order
+                  for _p, _d, _a, mis, _j, _r in pileup_cohorts(
+                      state, groups[p], _SmallCfg()))
+    torch.cuda.synchronize()
+    reset_counters("snp.cnn_graph_replays")
+    got, pending = [], None
+    for p in order:
+        fin = infer_snp_group(state, groups[p], _SmallCfg(), async_mode=True)
+        if pending is not None:
+            got.append(pending())
+        pending = fin
+    got.append(pending())
+    for p, outs in zip(order, got):
+        assert len(outs) == len(want[p])
+        for g, w in zip(outs, want[p]):
+            np.testing.assert_array_equal(g, w)
+    assert replays > 4 * len(order)
+    assert counters("snp.cnn_graph_replays") == {
+        "snp.cnn_graph_replays": replays}
+    assert {(p, _SmallCfg.batch_size) for p in order} <= set(
+        state.replicas[0].graphs)
 
 
 # clock cycles of torch.cuda._sleep: ~0.2 s at the H100's 1.98 GHz
