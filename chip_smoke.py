@@ -41,7 +41,11 @@ Phases, each printing one JSON line per case:
    then the cuda run under torch.profiler, with the device time of K1's
    two kernels and K2 on a line of its own;
 6. the SNP CNNs (ONT-HG002 and haploid packs) on cuda against cpu,
-   atol 2e-5, B = 4096;
+   atol 2e-5, B = 4096; then (6b, alone with `python3 chip_smoke.py
+   --k6`) K6 snp_trunk against its plain twin (within 1e-5, two launches
+   bit-identical) at 4,096 and 2,704 rows, with kernel, twin, cuDNN
+   trunk and bound times, and the SNP forward with K6 and with the cuDNN
+   trunk;
 7. the SNP slice: one 4.2 Mb contig, 30x, 8 kb reads, 3% substitution
    and 1% indel errors, a planted SNP every 1,000 bp (four two-member
    decode groups and one single) through `--mode snps --cpu 1` on cuda
@@ -240,6 +244,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # clock (the guide's table has no int32 entry).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# the float32 FMA peak outside the tensor cores (NVIDIA's data sheet)
+FP32_FLOP_PER_S = 67e12
 # int32 operations the DP needs per cell of K1, one each: the base match
 # test (the query code's < 4 test is per row), the substitution select,
 # diag = H[j-1] + sub, H - go, V - ge, the V max, the v_ext compare, the
@@ -1069,6 +1075,86 @@ def phase_snp_models():
               "atol": 2e-5, "cuda_forward_ms": ms})
         if not err <= 2e-5:
             fail("SNP CNN %s: cuda vs cpu max err %g > 2e-5" % (name, err))
+
+
+def snp_model_on_card(pack="ONT-HG002"):
+    """The SNPModel of `pack` on the card, in eval mode."""
+    from nanocaller_tpu_torch.models import (SNPModel, load_model,
+                                             torch_state_dict_from_params)
+
+    m = SNPModel()
+    m.load_state_dict(torch_state_dict_from_params(load_model("snp", pack)[0]))
+    return m.to("cuda").eval()
+
+
+def k6_rows(m, snp_trunk, label, Bs=(4096, 2704), reps=20):
+    """K6 (`snp_trunk(x, packed)`, the port's wrapper or another build of
+    the kernel) at the SNP CNN's slice sizes on model m's weights: its
+    time by CUDA events, its bound by operations (models/snp_trunk.py:
+    3,286,112 FLOP a row over the float32 FMA peak) and by bytes, the
+    plain twin's time, the cuDNN trunk's (the module's nn.Conv2d chain,
+    `conv_trunk`, the library yardstick), the largest gap to the twin on
+    uniform [0, 1) rows and whether two launches give equal bits."""
+    import torch
+
+    from nanocaller_tpu_torch.models import snp_trunk as K6
+
+    packed = m.trunk_weights()
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for B in Bs:
+        x = torch.rand((B, 5, 41, 5), device="cuda", generator=g)
+        with torch.inference_mode():
+            got = snp_trunk(x, packed)
+            again = snp_trunk(x, packed)
+            want = K6.snp_trunk_reference(x, packed)
+            torch.cuda.synchronize()
+            row = {"phase": "K6_snp_trunk", "kernel": label, "B": B,
+                   "max_abs_err": float((got - want).abs().max()),
+                   "repeat_equal": bool(torch.equal(got, again)),
+                   "ms": cuda_ms(lambda: snp_trunk(x, packed), reps),
+                   "plain_ms": cuda_ms(
+                       lambda: K6.snp_trunk_reference(x, packed), reps),
+                   "library_ms": cuda_ms(lambda: m.conv_trunk(x), reps)}
+        flop = 3_286_112 * B
+        b_ops = flop / FP32_FLOP_PER_S * 1e3
+        b_bytes = ((4100 + 6912) * B + 4 * K6.PACKED_SIZE) \
+            / HBM_BYTES_PER_S * 1e3
+        row.update(bound_ms=max(b_ops, b_bytes),
+                   bound_by="operations" if b_ops >= b_bytes else "bytes",
+                   gflop_per_s=flop / row["ms"] / 1e6)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        emit(row)
+    return rows
+
+
+def phase_k6():
+    """Phase 6b: K6 snp_trunk against its plain twin and the cuDNN trunk
+    at the SNP CNN's slice sizes (k6_rows), and the whole SNP forward at
+    4,096 rows with K6 (inference) and with the cuDNN trunk (grad mode
+    on: the module's nn.Conv2d path)."""
+    import torch
+
+    from nanocaller_tpu_torch.models.snp_trunk import snp_trunk
+
+    m = snp_model_on_card()
+    rows = k6_rows(m, snp_trunk, "snp_trunk.cu")
+    for r in rows:
+        if r["max_abs_err"] > 1e-5 or not r["repeat_equal"]:
+            fail("K6 at B=%d: max err %g, repeat equal %s"
+                 % (r["B"], r["max_abs_err"], r["repeat_equal"]))
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.rand((SNP_CNN_B, 5, 41, 5), device="cuda", generator=g)
+    ref = torch.nn.functional.one_hot(torch.randint(
+        0, 4, (SNP_CNN_B,), device="cuda", generator=g), 4).float()
+    with torch.inference_mode():
+        k6_ms = cuda_ms(lambda: m(x, ref), 20)
+    with torch.enable_grad():
+        cudnn_ms = cuda_ms(lambda: m(x, ref), 20)
+    emit({"phase": "snp_forward", "B": SNP_CNN_B, "k6_ms": k6_ms,
+          "cudnn_trunk_ms": cudnn_ms})
+    return rows
 
 
 def write_snp_fixture(tmp):
@@ -3555,6 +3641,14 @@ def main():
         return 2
     if sys.argv[1:2] == ["--cli-child"]:
         return cli_child(json.loads(sys.argv[2]) + sys.argv[3:])
+    if sys.argv[1:2] == ["--k6"]:
+        # phase 6b alone
+        from nanocaller_tpu_torch.runtime.device import resolve_device
+
+        resolve_device("cuda")
+        emit({"phase": "setup", "nvidia_smi": _smi_line()})
+        phase_k6()
+        return 0
     from nanocaller_tpu_torch.align import nw_kernels as K
     from nanocaller_tpu_torch.io import native
     from nanocaller_tpu_torch.runtime.device import resolve_device
@@ -3580,6 +3674,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         counts, indel_fasta, indel_bam = phase_slice(tmp)
         phase_snp_models()
+        k6_rows_ = phase_k6()
         snp_counts, fasta_p, bam_p = phase_snp_slice(tmp)
         k3_rows = phase_k3(fasta_p, bam_p,
                            snp_counts["SNP_PILEUP_LAUNCHES"])
@@ -3714,6 +3809,19 @@ def main():
          "other_shapes": [{k: r[k] for k in (
              "inputs", "B", "R", "ms", "plain_ms", "bound_ms", "bound_by")}
              for r in k5_rows[:-len(a2b_k5_rows)] + a2b_k5_rows[1:]]},
+        {"name": "snp_trunk", "route": "cuda",
+         "source": "nanocaller_tpu_torch/csrc/snp_trunk.cu",
+         "replaces": "no TPU kernel: the SNP CNN's cuDNN trunk "
+                     "(models/snp.py)",
+         "max_abs_err": max(r["max_abs_err"] for r in k6_rows_),
+         "ms": k6_rows_[0]["ms"], "plain_ms": k6_rows_[0]["plain_ms"],
+         "bound_ms": k6_rows_[0]["bound_ms"],
+         "bound_by": k6_rows_[0]["bound_by"],
+         "library_ms": k6_rows_[0]["library_ms"],
+         "shape": "B=%d rows (a full SNP CNN slice)" % k6_rows_[0]["B"],
+         "other_shapes": [{k: r[k] for k in (
+             "B", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+             for r in k6_rows_[1:]]},
     ]
     print(smi, flush=True)
     emit({"kernels": kernels})

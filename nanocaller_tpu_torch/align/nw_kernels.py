@@ -19,8 +19,9 @@ PyTorch twins, and the nvcc build of every kernel of the port.
 Each wrapper takes its plain twin (`nw_tb_reference`, `nw_walk_reference`,
 `nw_cigar_reference`) only for a tensor on the CPU; for a CUDA tensor it
 launches its kernel or raises. Every source in SOURCES (these three, K3
-csrc/snp_pileup.cu, whose wrapper is pileup/snp_pileup.py, and K5
-csrc/snp_dense_pileup.cu, whose wrapper is pileup/snp_dense.py) is built
+csrc/snp_pileup.cu, whose wrapper is pileup/snp_pileup.py, K5
+csrc/snp_dense_pileup.cu, whose wrapper is pileup/snp_dense.py, and K6
+csrc/snp_trunk.cu, whose wrapper is models/snp_trunk.py) is built
 at first use with nvcc for sm_90a into nanocaller_tpu_torch/_build/ (a
 directory .gitignore lists), into one library named by the hash of the
 sources and the headers they include (HEADERS: csrc/stage.cuh, K4's and
@@ -46,7 +47,7 @@ NEG = -(1 << 28)
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in
                 ("nw_tb.cu", "nw_walk.cu", "nw_cigar.cu", "snp_pileup.cu",
-                 "snp_dense_pileup.cu"))
+                 "snp_dense_pileup.cu", "snp_trunk.cu"))
 # headers the sources include (part of the library's hash)
 HEADERS = (os.path.join(_PKG, "csrc", "stage.cuh"),)
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -134,6 +135,9 @@ def _lib():
         # outputs and the stream
         lib.snp_dense_pileup_launch.argtypes = [p] * 6 + [i, i] + [p] * 3
         lib.snp_dense_pileup_launch.restype = i
+        # x, packed weights, out, B and the stream
+        lib.snp_trunk_launch.argtypes = [p, p, p, i, p]
+        lib.snp_trunk_launch.restype = i
         _LIB = lib
     return _LIB
 

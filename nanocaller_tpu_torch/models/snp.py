@@ -11,6 +11,12 @@ fc1 sees its 3·9·64 = 1,728 inputs in the flax order. Flax's SAME
 padding for odd kernels is symmetric: conv1_1 (1,5), conv1_2 (5,1) and
 conv1_3 (5,5) pad (0,2), (2,0) and (2,2). Load weights with
 models.weights.torch_state_dict_from_params.
+
+For inference on CUDA (grad mode off, as under the callers'
+inference_mode) the convolutions up to fc1 run as one launch of kernel K6
+(models/snp_trunk.py) on weights packed once a device
+(_Trunk.trunk_weights); with grad mode on (training, the tensor-parallel
+step) and on the CPU the nn.Conv2d trunk below runs, the plain version.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .snp_trunk import pack_trunk_weights, snp_trunk
 
 
 class _Trunk(nn.Module):
@@ -29,6 +37,9 @@ class _Trunk(nn.Module):
         self.conv2 = nn.Conv2d(48, 32, (2, 3), stride=(1, 2))
         self.conv3 = nn.Conv2d(32, 64, (2, 3), stride=(1, 2))
         self.fc1 = nn.Linear(3 * 9 * 64, 48)
+        # K6's packed weights by device: (the weights' addresses and
+        # versions when packed, the packed vector)
+        self._k6 = {}
 
     def dense(self, layer, x):
         """One of the dense layers fc1, fa and fc2 applied to x (the
@@ -36,13 +47,42 @@ class _Trunk(nn.Module):
         slices of them instead)."""
         return layer(x)
 
-    def trunk(self, x):
+    def trunk_weights(self):
+        """K6's packed weights on the module's device
+        (snp_trunk.pack_trunk_weights). Packed at the first call on a
+        device, and repacked into the same tensor, in place, whenever a
+        weight has moved or changed since (a load_state_dict or an
+        optimiser step bumps its version), so that a CUDA graph that
+        captured K6 reads the current weights at the address it holds."""
+        convs = [(c.weight, c.bias) for c in (
+            self.conv1_1, self.conv1_2, self.conv1_3, self.conv2, self.conv3)]
+        key = tuple((t.data_ptr(), t._version) for wb in convs for t in wb)
+        dev = convs[0][0].device
+        held = self._k6.get(dev)
+        if held is None or held[0] != key:
+            # a normal tensor, refreshed in place also under
+            # inference_mode
+            with torch.inference_mode(False), torch.no_grad():
+                packed = pack_trunk_weights(convs)
+                if held is not None:
+                    packed = held[1].copy_(packed)
+            self._k6[dev] = (key, packed)
+        return self._k6[dev][1]
+
+    def conv_trunk(self, x):
+        """The nn.Conv2d trunk: x (B,5,41,5) → fc1's (B, 1,728) input."""
         x = x.permute(0, 3, 1, 2)  # NHWC → NCHW
         m = torch.cat([F.selu(self.conv1_1(x)), F.selu(self.conv1_2(x)),
                        F.selu(self.conv1_3(x))], dim=1)
         m = F.selu(self.conv2(m))
         m = F.selu(self.conv3(m))
-        flat = m.permute(0, 2, 3, 1).reshape(m.shape[0], -1)  # NHWC order
+        return m.permute(0, 2, 3, 1).reshape(m.shape[0], -1)  # NHWC order
+
+    def trunk(self, x):
+        if x.is_cuda and not torch.is_grad_enabled():
+            flat = snp_trunk(x.contiguous(), self.trunk_weights())
+        else:
+            flat = self.conv_trunk(x)
         return F.selu(self.dense(self.fc1, flat))
 
 

@@ -22,11 +22,13 @@ three paths, as the JAX package's payload types choose them:
 - a chunk's dense SnpBatch (--no_dedup_transfer, a chunk over
   _TABLE_CELL_CAP): kernel K5 (pileup/snp_dense.py) (infer_snp_batch).
 The three build the same x, bit for bit, for the same candidates; the
-SNP CNN (models/snp.py, torch/cuDNN) runs on it in cfg.batch_size rows
-(cnn_in_slices). On CUDA each full slice replays a CUDA graph of the
-forward, captured once a replica, ploidy and batch size (_CnnGraph):
-one runtime call in place of the forward's ~73, the same kernels, so
-the same probabilities bit for bit; the last, shorter slice runs eagerly.
+SNP CNN (models/snp.py: on CUDA its convolutions as one launch of kernel
+K6, models/snp_trunk.py, then fc1 and the heads in torch) runs on it in
+cfg.batch_size rows (cnn_in_slices). On CUDA each full slice replays a
+CUDA graph of the forward, captured once a replica, ploidy and batch
+size (_CnnGraph): one runtime call in place of the forward's, the same
+kernels, so the same probabilities bit for bit; the last, shorter slice
+runs eagerly.
 With several replicas (SnpCallerState.replicas, one a card) each route
 splits its rows over them in cfg.batch_size slices (sharding.dp_rows):
 the kernel and the CNN of a slice run on its replica, and the
@@ -69,7 +71,7 @@ from .pileup.snp_pileup import (chunk_wire, group_wire, site_depth,
 from .runtime import sharding, watchdog
 from .runtime.chunker import group_adjacent_chunks
 from .runtime.device import resolve_device, to_host
-from .runtime.metrics import count, span
+from .runtime.metrics import count, span, total
 
 NUM_TO_BASE = "AGTC"  # snpCaller.py:14
 
@@ -175,7 +177,8 @@ class _CnnGraph:
     on the device's current stream, so that the next call's copies and
     replay, which rewrite the buffers, queue behind this one's. Capture
     synchronises the device; it happens at a replica's first full slice
-    of each ploidy and batch size."""
+    of each ploidy and batch size. Each replay adds to `k6.launches` the
+    K6 launches its capture recorded (k6_launches)."""
 
     def __init__(self, forward, xs, rs, pool):
         dev = xs.device
@@ -183,15 +186,22 @@ class _CnnGraph:
             self.x = torch.zeros_like(xs)
             self.ref = torch.zeros_like(rs)
             stream = torch.cuda.Stream(dev)
-            # cuDNN's and cuBLAS's lazy set-up runs before the capture
+            # cuBLAS's lazy set-up, K6's weight packing and its shared
+            # memory limit run before the capture
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
                 forward(self.x, self.ref)
             torch.cuda.current_stream(dev).wait_stream(stream)
             self.graph = torch.cuda.CUDAGraph()
+            # the capture runs no kernel: its K6 launches come off the
+            # counter, and each replay counts them
+            k6 = total("k6.launches")
             with torch.cuda.graph(self.graph, pool=pool, stream=stream,
                                   capture_error_mode="thread_local"):
                 self.out = forward(self.x, self.ref)
+            self.k6_launches = total("k6.launches") - k6
+            if self.k6_launches:
+                count("k6.launches", -self.k6_launches)
 
     def __call__(self, xs, rs, dst):
         self.x.copy_(xs)
@@ -199,6 +209,8 @@ class _CnnGraph:
         self.graph.replay()
         dst.copy_(self.out)
         count("snp.cnn_graph_replays")
+        if self.k6_launches:
+            count("k6.launches", self.k6_launches)
 
 
 def cnn_in_slices(x, ref, bs, forward, full=None):
@@ -230,6 +242,8 @@ def _snp_cnn(replica, ploidy, x, ref, bs):
             return model(xs, rs)[0][:, :, 1]
     full = None
     if x.device.type == "cuda" and x.shape[0] >= bs:
+        # a replay runs no Python: bring K6's packed weights up to date
+        (hap_model if ploidy == "haploid" else model).trunk_weights()
         full = replica.cnn_graph(ploidy, forward, x[:bs], ref[:bs])
     return cnn_in_slices(x, ref, bs, forward, full)
 

@@ -19,7 +19,9 @@ second row (rows off the 16-byte grid); a SNP decode group over the payload
 caps, sent member by member (one K3 launch a member), against its
 uncapped run; the SNP CNN's full slices as CUDA graph replays against
 the eager forward, bit for bit, at the benchmark group's shape and with
-groups of both ploidies queued one ahead;
+groups of both ploidies queued one ahead; K6 (snp_trunk) against the
+cuDNN trunk at B = 1 to 4,097, twice bit for bit, its launches a group,
+and none in a train step;
 `--mode all --cpu 2` on cuda against cpu, with no CUDA context in a
 worker; two replicas on the card (bit-identical probabilities, one K3 or
 K5 launch a cohort and replica) and two `--num_processes 2` processes
@@ -805,6 +807,117 @@ def test_groups_one_ahead_match_eager_on_card(snp_group, monkeypatch):
         "snp.cnn_graph_replays": replays}
     assert {(p, _SmallCfg.batch_size) for p in order} <= set(
         state.replicas[0].graphs)
+
+
+def _trunk_models():
+    from nanocaller_tpu_torch.models import (HaploidSNPModel, SNPModel,
+                                             load_model,
+                                             torch_state_dict_from_params)
+    from nanocaller_tpu_torch.runtime.device import resolve_device
+
+    resolve_device("cuda")  # TF32 off, deterministic cuDNN
+    out = {}
+    for name, cls in (("ONT-HG002", SNPModel), ("CCS-HG002", SNPModel),
+                      ("haploid", HaploidSNPModel)):
+        m = cls()
+        m.load_state_dict(torch_state_dict_from_params(
+            load_model("snp", name)[0]))
+        out[name] = m.to("cuda").eval()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack", ["ONT-HG002", "haploid"])
+@pytest.mark.parametrize("B", [1, 17, 2704, 4096, 4097])
+def test_trunk_kernel_matches_cudnn(pack, B):
+    """K6 against the cuDNN trunk (its plain twin on the card, TF32 off)
+    within 1e-5 on rows of uniform [0, 1) values, as the graph tests
+    draw them: fc1's input, and the model's trunk output after fc1 (K6
+    under inference_mode, nn.Conv2d with grad mode on). One K6 launch,
+    none with grad mode on."""
+    _need_gpu()
+    from nanocaller_tpu_torch.models import snp_trunk as K6
+
+    m = _trunk_models()[pack]
+    g = torch.Generator(device="cuda").manual_seed(B)
+    x = torch.rand((B, 5, 41, 5), device="cuda", generator=g)
+    packed = m.trunk_weights()
+    reset_counters("k6.")
+    got = K6.snp_trunk(x, packed)
+    want = K6.snp_trunk_reference(x, packed)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B, 1728)
+    assert float((got - want).abs().max()) <= 1e-5
+    with torch.inference_mode():
+        fast = m.trunk(x)
+    plain = m.trunk(x).detach()
+    torch.cuda.synchronize()
+    assert float((fast - plain).abs().max()) <= 1e-5
+    assert counters("k6.") == {"k6.launches": 2}
+
+
+@pytest.mark.cuda
+def test_trunk_kernel_repeats_bit_for_bit():
+    """Two launches on one input give equal bits (no atomics, one order
+    of summation), for each pack; CCS-HG002's weights differ."""
+    _need_gpu()
+    from nanocaller_tpu_torch.models import snp_trunk as K6
+
+    models = _trunk_models()
+    x = torch.rand((4097, 5, 41, 5), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(26))
+    outs = {}
+    for name, m in models.items():
+        a = K6.snp_trunk(x, m.trunk_weights())
+        b = K6.snp_trunk(x, m.trunk_weights())
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), name
+        outs[name] = a
+    assert not torch.equal(outs["ONT-HG002"], outs["CCS-HG002"])
+
+
+@pytest.mark.cuda
+def test_group_counts_trunk_launches(snp_group):
+    """One group through infer_snp_group at batch 16 (cohorts of 37 and
+    68 rows: 2 + 4 full slices replayed, 2 tails eager) counts 8
+    k6.launches once its graph is captured, as many as its slices."""
+    state, groups = snp_group
+    gf = groups["diploid"]
+    want = infer_snp_group(state, gf, _SmallCfg())
+    torch.cuda.synchronize()
+    reset_counters(("k6.", "snp.cnn_graph_replays"))
+    got = infer_snp_group(state, gf, _SmallCfg())
+    slices = sum(-(-len(mis) // _SmallCfg.batch_size)
+                 for _p, _d, _a, mis, _j, _r in pileup_cohorts(
+                     state, gf, _SmallCfg()))
+    assert slices == 8
+    assert counters("k6.") == {"k6.launches": 8}
+    assert counters("snp.cnn_graph_replays") == {"snp.cnn_graph_replays": 6}
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_train_step_runs_cudnn_trunk():
+    """A SNP train step on the card (grad mode on) runs the nn.Conv2d
+    trunk, no K6 launch, and its gradients match the CPU's as
+    test_train_step_cuda_matches_cpu requires."""
+    _need_gpu()
+    import chip_smoke
+
+    rng = np.random.default_rng(7)
+    B = 64
+    batch = {"x": rng.normal(size=(B, 5, 41, 5)).astype(np.float32),
+             "ref": np.eye(4, dtype=np.float32)[rng.integers(0, 4, B)],
+             "base_labels": np.eye(2, dtype=np.float32)[
+                 rng.integers(0, 2, (B, 4))],
+             "gt_label": np.eye(2, dtype=np.float32)[rng.integers(0, 2, B)]}
+    state = chip_smoke.init_state("snp", 5)
+    reset_counters("k6.")
+    cuda = chip_smoke.one_step("snp", state, batch, "cuda")
+    assert counters("k6.") == {}
+    cpu = chip_smoke.one_step("snp", state, batch, "cpu")
+    assert chip_smoke.steps_differ(cuda, cpu, "snp") is None
 
 
 # clock cycles of torch.cuda._sleep: ~0.2 s at the H100's 1.98 GHz
