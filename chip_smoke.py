@@ -3651,12 +3651,13 @@ def main():
         return 0
     from nanocaller_tpu_torch.align import nw_kernels as K
     from nanocaller_tpu_torch.io import native
+    from nanocaller_tpu_torch.runtime import kernels
     from nanocaller_tpu_torch.runtime.device import resolve_device
     import numpy as np
 
     smi = _smi_line()
     t0 = time.perf_counter()
-    lib = K.build()
+    lib = kernels.build()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     native.get_lib()

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the NW alignment path, their plain
-PyTorch twins, and the nvcc build of every kernel of the port.
+"""Hand-written CUDA kernels of the NW alignment path and their plain
+PyTorch twins.
 
 - K1 `nw_tb` (csrc/nw_tb.cu) replaces the Pallas kernel
   nanocaller_tpu/align/pallas_nw.py::batch_nw_tb_pallas: the batched
@@ -18,43 +18,18 @@ PyTorch twins, and the nvcc build of every kernel of the port.
 
 Each wrapper takes its plain twin (`nw_tb_reference`, `nw_walk_reference`,
 `nw_cigar_reference`) only for a tensor on the CPU; for a CUDA tensor it
-launches its kernel or raises. Every source in SOURCES (these three, K3
-csrc/snp_pileup.cu, whose wrapper is pileup/snp_pileup.py, K5
-csrc/snp_dense_pileup.cu, whose wrapper is pileup/snp_dense.py, and K6
-csrc/snp_trunk.cu, whose wrapper is models/snp_trunk.py) is built
-at first use with nvcc for sm_90a into nanocaller_tpu_torch/_build/ (a
-directory .gitignore lists), into one library named by the hash of the
-sources and the headers they include (HEADERS: csrc/stage.cuh, K4's and
-K5's staging into shared memory), and loaded with ctypes.
+launches its kernel (runtime/kernels.py builds the library) or raises.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-
 import torch
 
-from ..runtime import watchdog
+from ..runtime import kernels
+from ..runtime.kernels import I, P
 from ..runtime.metrics import count
 
 NEG = -(1 << 28)
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in
-                ("nw_tb.cu", "nw_walk.cu", "nw_cigar.cu", "snp_pileup.cu",
-                 "snp_dense_pileup.cu", "snp_trunk.cu"))
-# headers the sources include (part of the library's hash)
-HEADERS = (os.path.join(_PKG, "csrc", "stage.cuh"),)
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
-
-_LIB = None
 
 
 def _count_launch(k, Q, R, B):
@@ -64,82 +39,6 @@ def _count_launch(k, Q, R, B):
     metrics.total sums a kernel's over the buckets."""
     count("%s.launches.%dx%d" % (k, Q, R))
     count("%s.pairs.%dx%d" % (k, Q, R), B)
-
-
-def _nvcc():
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (needed to build the CUDA kernels "
-                       "in %s)" % os.path.dirname(SOURCES[0]))
-
-
-def build():
-    """Compile the kernel sources (if their hash changed) and return the
-    library path: one nvcc per source, all started together, then one
-    link into a .so. It beats a supervising --watchdog while nvcc runs
-    (a cold build takes tens of seconds). Each build works in a fresh
-    temporary directory and renames the library into place, so one
-    that a killed process left behind is never read."""
-    h = hashlib.sha256()
-    for src in SOURCES + HEADERS:
-        with open(src, "rb") as fh:
-            h.update(fh.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    lib = os.path.join(BUILD_DIR, "libnw_%s.so" % h.hexdigest()[:16])
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
-    try:
-        nvcc = _nvcc()
-        objs = [os.path.join(tmp, os.path.basename(src) + ".o")
-                for src in SOURCES]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o",
-                                   obj, src], stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for src, obj in zip(SOURCES, objs)]
-        results = [(watchdog.communicate(p)[0], p.returncode)
-                   for p in procs]
-        so = os.path.join(tmp, "lib.so")
-        link = subprocess.Popen([nvcc, *NVCC_FLAGS, "-shared", "-o", so,
-                                 *objs], stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        results.append((watchdog.communicate(link)[0], link.returncode))
-        for out, rc in results:
-            if rc != 0:
-                raise RuntimeError("nvcc failed (%d):\n%s" % (rc, out))
-        os.replace(so, lib)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return lib
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(build())
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nw_tb_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-        lib.nw_tb_launch.restype = i
-        lib.nw_walk_launch.argtypes = [p, p, p, i, i, i, i, p]
-        lib.nw_walk_launch.restype = i
-        lib.nw_cigar_launch.argtypes = [p] * 5 + [i] * 4 + [p]
-        lib.nw_cigar_launch.restype = i
-        # the wire's 18 arrays, N S T M, the rows' 7 arrays, deep_w B,
-        # the three outputs and the stream
-        lib.snp_pileup_launch.argtypes = [p] * 18 + [i] * 4 + [p] * 7 \
-            + [i, i] + [p] * 4
-        lib.snp_pileup_launch.restype = i
-        # codes, mask, col_ref, col_valid, center_ref, norm, B R, the two
-        # outputs and the stream
-        lib.snp_dense_pileup_launch.argtypes = [p] * 6 + [i, i] + [p] * 3
-        lib.snp_dense_pileup_launch.restype = i
-        # x, packed weights, out, B and the stream
-        lib.snp_trunk_launch.argtypes = [p, p, p, i, p]
-        lib.snp_trunk_launch.restype = i
-        _LIB = lib
-    return _LIB
 
 
 def _check(t, name, dtype, ndim):
@@ -175,13 +74,12 @@ def nw_tb(qcodes, rcodes, match, mismatch, gap_open, gap_extend):
                      device=qcodes.device)
     if B == 0:
         return tb
-    lib = _lib()
+    launch = kernels.launch_fn("nw_tb_launch", [P, P, P] + [I] * 7 + [P])
     with torch.cuda.device(qcodes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.nw_tb_launch(qcodes.data_ptr(), rcodes.data_ptr(),
-                              tb.data_ptr(), B, Q, R, int(match),
-                              int(mismatch), int(gap_open), int(gap_extend),
-                              stream)
+        rc = launch(qcodes.data_ptr(), rcodes.data_ptr(), tb.data_ptr(), B,
+                    Q, R, int(match), int(mismatch), int(gap_open),
+                    int(gap_extend), stream)
     if rc != 0:
         raise RuntimeError("nw_tb launch failed: cudaError %d" % rc)
     _count_launch("k1", Q, R, B)
@@ -292,12 +190,11 @@ def nw_walk(tb, qlens, rlens, T):
     # pinned, so that the copy is queued on the stream without a wait
     lens = torch.stack((qlens, rlens)).pin_memory().to(tb.device,
                                                        non_blocking=True)
-    lib = _lib()
+    launch = kernels.launch_fn("nw_walk_launch", [P, P, P] + [I] * 4 + [P])
     with torch.cuda.device(tb.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.nw_walk_launch(tb.data_ptr(), lens.data_ptr(),
-                                ops.data_ptr(), B, Q1 - 1, R1 - 1, int(T),
-                                stream)
+        rc = launch(tb.data_ptr(), lens.data_ptr(), ops.data_ptr(), B,
+                    Q1 - 1, R1 - 1, int(T), stream)
     if rc != 0:
         raise RuntimeError("nw_walk launch failed: cudaError %d" % rc)
     _count_launch("k2", Q1 - 1, R1 - 1, B)
@@ -367,12 +264,11 @@ def nw_cigar(ops, qraw, rraw):
     counts = torch.empty(B, dtype=torch.int32, device=ops.device)
     if B == 0:
         return runs, counts
-    lib = _lib()
+    launch = kernels.launch_fn("nw_cigar_launch", [P] * 5 + [I] * 4 + [P])
     with torch.cuda.device(ops.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.nw_cigar_launch(ops.data_ptr(), qraw.data_ptr(),
-                                 rraw.data_ptr(), runs.data_ptr(),
-                                 counts.data_ptr(), B, T, Q, R, stream)
+        rc = launch(ops.data_ptr(), qraw.data_ptr(), rraw.data_ptr(),
+                    runs.data_ptr(), counts.data_ptr(), B, T, Q, R, stream)
     if rc != 0:
         raise RuntimeError("nw_cigar launch failed: cudaError %d" % rc)
     _count_launch("k4", Q, R, B)

@@ -2,7 +2,7 @@
 CUDA kernel, its plain PyTorch twin, and the packing of its weights.
 
 The kernel (csrc/snp_trunk.cu, built into the library of
-align/nw_kernels.py) replaces no TPU kernel: the JAX package's trunk is
+runtime/kernels.py) replaces no TPU kernel: the JAX package's trunk is
 XLA convolutions (nanocaller_tpu/models/snp.py). It runs, in one launch,
 what models/snp.py::_Trunk computes before fc1: conv1_1, conv1_2 and
 conv1_3 with flax's symmetric SAME padding, bias and SELU, into 48
@@ -30,7 +30,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..align import nw_kernels
+from ..runtime import kernels
+from ..runtime.kernels import I, P
 from ..runtime.metrics import count
 
 # the trunk's convolutions in packing order: (name, weight shape (co, ci,
@@ -106,11 +107,12 @@ def snp_trunk(x, packed):
     out = torch.empty((B, FLAT), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
-    lib = nw_kernels._lib()
+    # x, packed weights, out, B and the stream
+    launch = kernels.launch_fn("snp_trunk_launch", [P, P, P, I, P])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.snp_trunk_launch(x.data_ptr(), packed.data_ptr(),
-                                  out.data_ptr(), B, stream)
+        rc = launch(x.data_ptr(), packed.data_ptr(), out.data_ptr(), B,
+                    stream)
     if rc != 0:
         raise RuntimeError("snp_trunk launch failed: cudaError %d" % rc)
     count("k6.launches")

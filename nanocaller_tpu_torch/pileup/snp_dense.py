@@ -2,7 +2,7 @@
 PyTorch twin, and its launch counter (`k5.launches`, runtime/metrics.py).
 
 The hand-written CUDA kernel (csrc/snp_dense_pileup.cu, built with the
-other kernels into the library of align/nw_kernels.py) replaces the
+other kernels into the library of runtime/kernels.py) replaces the
 assembly of nanocaller_tpu/snp_caller.py::_snp_forward_dense up to the
 CNN: from a dense SnpBatch's per-candidate (R, 41) read codes to the
 (B, 5, 41, 5) float32 NHWC tensor the SNP CNN takes, with K3's
@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from ..align import nw_kernels
+from ..runtime import kernels
+from ..runtime.kernels import I, P
 from ..runtime.metrics import count
 from .snp_features import CENTER, WIDTH
 
@@ -77,10 +78,13 @@ def snp_dense_pileup(codes, read_mask, col_ref, col_valid, center_ref, norm):
     ref = torch.empty((B, 4), dtype=torch.float32, device=dev)
     if B == 0:
         return x, ref
-    lib = nw_kernels._lib()
+    # codes, mask, col_ref, col_valid, center_ref, norm, B R, the two
+    # outputs and the stream
+    launch = kernels.launch_fn("snp_dense_pileup_launch",
+                               [P] * 6 + [I, I] + [P] * 3)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.snp_dense_pileup_launch(
+        rc = launch(
             codes.data_ptr(), read_mask.data_ptr(), col_ref.data_ptr(),
             col_valid.data_ptr(), center_ref.data_ptr(), norm.data_ptr(), B,
             R, x.data_ptr(), ref.data_ptr(), stream)

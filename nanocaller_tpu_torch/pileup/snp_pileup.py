@@ -2,8 +2,8 @@
 the CNN's input, its plain PyTorch twin, and the payload's copies to the
 device.
 
-The hand-written CUDA kernel (csrc/snp_pileup.cu, built with K1 and K2
-into the library of align/nw_kernels.py) replaces the XLA-jitted body of
+The hand-written CUDA kernel (csrc/snp_pileup.cu, built with the other
+kernels into the library of runtime/kernels.py) replaces the XLA-jitted body of
 nanocaller_tpu/snp_caller.py's group kernel up to the CNN: the band-quota
 neighbour selection clamped to each member's window
 (`_device_select_neighbors_clamped`), the covering-read list
@@ -42,7 +42,8 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from ..align import nw_kernels
+from ..runtime import kernels
+from ..runtime.kernels import I, P
 from ..runtime.metrics import count, span
 from .snp_features import BAND_SCHEDULES, CENTER, WIDTH
 
@@ -340,11 +341,14 @@ def snp_pileup(wire, cand_site, cand_pos, lo_c, hi_c, norm, deep_rids=None,
     ref = torch.empty((B, 4), dtype=torch.float32, device=dev)
     if B == 0:
         return out, soc, ref
-    lib = nw_kernels._lib()
+    # the wire's 18 arrays, N S T M, the rows' 7 arrays, deep_w B, the
+    # three outputs and the stream
+    launch = kernels.launch_fn("snp_pileup_launch", [P] * 18 + [I] * 4
+                               + [P] * 7 + [I, I] + [P] * 4)
     ptr = lambda t: t.data_ptr() if t is not None and t.numel() else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.snp_pileup_launch(
+        rc = launch(
             *[ptr(t) for t in wire.tensors()], wire.n_reads, wire.n_sites,
             wire.minor_bits.shape[0], wire.n_nbrs, ptr(cand_site),
             ptr(cand_pos), ptr(lo_c), ptr(hi_c), ptr(norm), ptr(deep_rids),

@@ -1,1 +1,2 @@
-"""Chunk planning, metrics, run manifest and device selection."""
+"""Chunk planning, metrics, run manifest, device selection and the CUDA
+kernel library."""

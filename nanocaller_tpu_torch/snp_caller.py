@@ -33,6 +33,11 @@ With several replicas (SnpCallerState.replicas, one a card) each route
 splits its rows over them in cfg.batch_size slices (sharding.dp_rows):
 the kernel and the CNN of a slice run on its replica, and the
 probabilities are those of one device, bit for bit.
+A route only describes its launches: the replica, the ploidy, the
+kernel call that builds (x, ref) and the rows of the payload it fills.
+One path (_infer_launches) queues each launch's kernel, CNN and copy
+back, and its one finisher writes every part into its rows of one array
+(a decode group's members are slices of it).
 
 A decode group's host work is recorded in a running torch.profiler trace
 as spans (runtime/metrics.span), each tagged with the group's number,
@@ -42,8 +47,9 @@ packing), `snp.wire` and `snp.copy_in` (the wire's host layout and the
 payload's copies, pileup/snp_pileup.py), `snp.launch` (queueing K3 and
 the CNN's forwards: graph replays, each counted in
 `snp.cnn_graph_replays`, and the eager tail) and `snp.copy_out` (the
-finisher's wait for each part's probabilities on the host). With no
-profiler running a span costs a flag check.
+finisher's wait for each part's probabilities on the host); the chunk
+and dense routes record their launches and copies in the same spans,
+untagged. With no profiler running a span costs a flag check.
 
 Each part's probabilities come back through _CopyBack: on CUDA a copy
 queued behind the part's CNN, whose own event the finisher waits on, so
@@ -273,77 +279,159 @@ class _CopyBack:
         return self.host.numpy()
 
 
-def pileup_cohorts(state, gf, cfg, arg=None):
-    """K3's launches for one decode group, as infer_snp_group makes them.
+# K3's row arrays: each launch copies these of its rows to its device
+_K3_ROWS = {"cand_site": np.int32, "cand_pos": np.int32, "lo": np.int32,
+            "hi": np.int32, "norm": np.float32, "rids": np.int32}
 
-    The members' rows pack into (ploidy, deep) cohorts, and each
-    cohort's rows split over the state's replicas (sharding.dp_rows at
-    cfg.batch_size): one launch a cohort and replica, on the replica's
-    device, to which the payload goes once. Returns [(ploidy, deep,
-    args, dst_mi, dst_j, r)] in launch order, where snp_pileup(*args)
-    builds the pileups of replica r's rows and row k of it belongs to
-    member dst_mi[k], row dst_j[k]. Normal rows count every covering
-    read, which the payload keeps within maxcov (checked here, for both
-    devices); deep rows (depth > maxcov) count their host-sampled read
-    ids. Spans, tagged with `arg`: snp.cohorts up to the first copy, then
-    the wire's (group_wire) and snp.copy_in for each launch's rows."""
-    with span("snp.cohorts", arg):
-        depth = site_depth(gf)
-        cohorts = {}  # (ploidy, deep) -> dict of row lists
-        for mi, (_oi, sec) in enumerate(gf.members):
-            if sec is None or len(sec) == 0:
-                continue
-            B = len(sec)
-            norm = _coverage_norm(state, sec, sec.ploidy, cfg)
-            deep_mask = np.zeros(B, bool)
-            deep_mask[sec.deep_idx] = True
-            for deep in (False, True):
-                rows = sec.deep_idx if deep else np.flatnonzero(~deep_mask)
-                if not len(rows):
-                    continue
-                if not deep:
-                    _check_depth(depth, sec.cand_site[rows], gf.maxcov)
-                c = cohorts.setdefault((sec.ploidy, deep), {
-                    "cand_site": [], "cand_pos": [], "norm": [], "lo": [],
-                    "hi": [], "mi": [], "j": [], "rids": []})
-                nr = len(rows)
-                c["cand_site"].append(sec.cand_site[rows])
-                c["cand_pos"].append(sec.cand_pos32[rows])
-                c["norm"].append(norm[rows])
-                c["lo"].append(np.full(nr, sec.nbr_lo, np.int32))
-                c["hi"].append(np.full(nr, sec.nbr_hi, np.int32))
-                c["mi"].append(np.full(nr, mi, np.int32))
-                c["j"].append(rows)
-                if deep:
-                    c["rids"].append(sec.deep_rids)
-        packed = [(key, {k: np.concatenate(v) for k, v in c.items() if v})
-                  for key, c in sorted(cohorts.items(),
-                                       key=lambda kv: (kv[0][1], kv[0][0]))]
 
-    wires = {}  # replica -> the payload on its device
-    out = []
-    for (ploidy, deep), c in packed:
-        for r, rows in enumerate(sharding.dp_rows(
-                len(c["mi"]), cfg.batch_size, state.devices)):
+def _cohorts(state, members, depth, maxcov, cfg):
+    """A payload's rows packed into (ploidy, deep) cohorts. members:
+    [(mi, sec, ploidy, lo, hi)], sec a group member or a chunk's features
+    and [lo, hi) its window of the neighbour arrays. Returns [(ploidy,
+    deep, c)] sorted by (deep, ploidy), c {name: array} with the rows'
+    _K3_ROWS, their member `mi` and their row `j` in it. Normal rows
+    count every covering read, which the payload keeps within maxcov
+    (checked here against `depth`, for both devices); deep rows (depth >
+    maxcov) count their host-sampled read ids."""
+    cohorts = {}  # (ploidy, deep) -> dict of row lists
+    for mi, sec, ploidy, lo, hi in members:
+        norm = _coverage_norm(state, sec, ploidy, cfg)
+        deep_mask = np.zeros(len(sec), bool)
+        deep_mask[sec.deep_idx] = True
+        for deep in (False, True):
+            rows = sec.deep_idx if deep else np.flatnonzero(~deep_mask)
             if not len(rows):
                 continue
-            dev = state.replicas[r][0]
+            if not deep:
+                _check_depth(depth, sec.cand_site[rows], maxcov)
+            c = cohorts.setdefault((ploidy, deep),
+                                   {k: [] for k in (*_K3_ROWS, "mi", "j")})
+            nr = len(rows)
+            c["cand_site"].append(sec.cand_site[rows])
+            c["cand_pos"].append(sec.cand_pos32[rows])
+            c["norm"].append(norm[rows])
+            c["lo"].append(np.full(nr, lo, np.int32))
+            c["hi"].append(np.full(nr, hi, np.int32))
+            c["mi"].append(np.full(nr, mi, np.int32))
+            c["j"].append(rows)
+            if deep:
+                c["rids"].append(sec.deep_rids)
+    return [(ploidy, deep, {k: np.concatenate(v) for k, v in c.items() if v})
+            for (ploidy, deep), c in sorted(cohorts.items(),
+                                            key=lambda kv: (kv[0][1],
+                                                            kv[0][0]))]
+
+
+def _shares(state, n, cfg):
+    """The state's replicas' shares of n rows (sharding.dp_rows at
+    cfg.batch_size): [(r, rows)], the empty shares left out."""
+    return [(r, rows) for r, rows in enumerate(sharding.dp_rows(
+        n, cfg.batch_size, state.devices)) if len(rows)]
+
+
+def _k3_launches(state, cohorts, cfg, wire, maxcov, arg=None):
+    """K3's launches of cohorts (_cohorts): each cohort's rows split over
+    the state's replicas (_shares), one launch a cohort and replica, on
+    the replica's device, to which the payload goes once (wire(device))
+    and then the launch's rows (span snp.copy_in, tagged with `arg`).
+    Returns [(ploidy, deep, args, mi, j, r)] in launch order, where
+    snp_pileup(*args) builds the pileups of replica r's rows, row k of
+    them member mi[k]'s row j[k]."""
+    wires = {}  # replica -> the payload on its device
+    out = []
+    for ploidy, deep, c in cohorts:
+        for r, rows in _shares(state, len(c["j"]), cfg):
+            dev = state.devices[r]
             if r not in wires:
-                wires[r] = group_wire(gf, dev, arg)
+                wires[r] = wire(dev)
             with span("snp.copy_in", arg):
-                host = {k: c[k][rows].astype(np.int32, copy=False) for k in
-                        ("cand_site", "cand_pos", "lo", "hi")
-                        + (("rids",) if deep else ())}
-                host["norm"] = c["norm"][rows].astype(np.float32,
-                                                      copy=False)
-                t = to_device(host, dev)
-                n_valid = torch.full((len(rows),), gf.maxcov,
-                                     dtype=torch.int32, device=dev) \
-                    if deep else None
+                t = to_device({k: c[k][rows].astype(dtype, copy=False)
+                               for k, dtype in _K3_ROWS.items() if k in c},
+                              dev)
+                n_valid = torch.full((len(rows),), maxcov, dtype=torch.int32,
+                                     device=dev) if deep else None
             args = (wires[r], t["cand_site"], t["cand_pos"], t["lo"],
                     t["hi"], t["norm"], t.get("rids"), n_valid)
             out.append((ploidy, deep, args, c["mi"][rows], c["j"][rows], r))
     return out
+
+
+def pileup_cohorts(state, gf, cfg, arg=None):
+    """K3's launches for one decode group, as infer_snp_group makes them.
+
+    The members' rows pack into (ploidy, deep) cohorts (_cohorts, each
+    member's window its [nbr_lo, nbr_hi)), and each cohort's rows split
+    over the state's replicas (_k3_launches): one launch a cohort and
+    replica. Returns [(ploidy, deep, args, dst_mi, dst_j, r)] in launch
+    order, where snp_pileup(*args) builds the pileups of replica r's rows
+    and row k of it belongs to member dst_mi[k], row dst_j[k]. Spans,
+    tagged with `arg`: snp.cohorts up to the first copy, then the wire's
+    (group_wire) and snp.copy_in for each launch's rows."""
+    with span("snp.cohorts", arg):
+        cohorts = _cohorts(state, [
+            (mi, sec, sec.ploidy, sec.nbr_lo, sec.nbr_hi)
+            for mi, (_oi, sec) in enumerate(gf.members)
+            if sec is not None and len(sec)], site_depth(gf), gf.maxcov, cfg)
+    return _k3_launches(state, cohorts, cfg,
+                        lambda dev: group_wire(gf, dev, arg), gf.maxcov, arg)
+
+
+def chunk_cohorts(state, feats, cfg, ploidy):
+    """K3's launches for one chunk's payload (SnpChunkFeatures) called at
+    `ploidy`, as infer_snp_chunk makes them: the chunk as one member whose
+    window is the whole neighbour array [0, M), its normal rows, then its
+    deep rows, split over the state's replicas (_k3_launches), the
+    payload going to each replica's device once as a chunk wire. Returns
+    [(deep, args, rows, r)] where snp_pileup(*args) builds the pileups of
+    the candidates `rows` on replica r."""
+    cohorts = _cohorts(state, [(0, feats, ploidy, 0, len(feats.nbr_pos))],
+                       site_depth(feats), feats.maxcov, cfg)
+    return [(deep, args, rows, r) for _p, deep, args, _mi, rows, r in
+            _k3_launches(state, cohorts, cfg,
+                         lambda dev: chunk_wire(feats, dev), feats.maxcov)]
+
+
+def _k3(*args):
+    """K3's (x, ref) of a launch's rows: snp_pileup, looked up at the call;
+    ref is the centre-ref one-hot, all zero for N as jax.nn.one_hot's."""
+    x, _soc, ref = snp_pileup(*args)
+    return x, ref
+
+
+def _infer_launches(state, launches, n, cfg, async_mode, arg=None,
+                    sections=None):
+    """The three routes' one launch-and-finish path. launches: [(r,
+    ploidy, pileup, args, dst)], pileup(*args) giving (x, ref) on replica
+    r's device for rows dst of the payload's n rows.
+
+    Each launch, in a snp.launch span: its pileup, the replica's CNN in
+    cfg.batch_size rows (_snp_cnn) and the probabilities' copy back
+    (_CopyBack), queued on the current stream. The finisher waits for
+    each part's copy (span snp.copy_out), beats a supervising --watchdog
+    and writes the part into its rows of one (n, 4) float32 array, which
+    it returns, or np.split's views of it at the row offsets `sections`.
+    Spans are tagged with `arg`. Returns the finisher (async_mode=True)
+    or its result."""
+    parts = []  # (dst, _CopyBack)
+    with torch.inference_mode():
+        for r, ploidy, pileup, args, dst in launches:
+            with span("snp.launch", arg):
+                x, ref = pileup(*args)
+                parts.append((dst, _CopyBack(_snp_cnn(
+                    state.replicas[r], ploidy, x, ref, cfg.batch_size))))
+
+    def finish():
+        out = np.zeros((n, 4), np.float32)
+        for dst, back in parts:
+            with span("snp.copy_out", arg):
+                probs = back.numpy()
+            # after the copy-back, not at the launch: a hung kernel stops
+            # the beats (launches are asynchronous)
+            watchdog.beat()
+            out[dst] = probs
+        return out if sections is None else np.split(out, sections)
+
+    return finish if async_mode else finish()
 
 
 def infer_snp_group(state, gf, cfg, async_mode=False):
@@ -351,104 +439,23 @@ def infer_snp_group(state, gf, cfg, async_mode=False):
 
     gf: pileup.snp_features.SnpGroupFeatures. Each (ploidy, deep) cohort
     of the members' rows takes one K3 launch (pileup_cohorts) and the CNN
-    in chunks of cfg.batch_size rows.
+    in chunks of cfg.batch_size rows; member mi's row j is row
+    offsets[mi] + j of the group's probabilities.
 
     Returns a list of per-member (B, 4) probability arrays aligned with
-    gf.members (async_mode=True: a zero-arg finisher returning it; the
-    launches and each part's copy back (_CopyBack) are queued on the
-    current stream, and the finisher waits for the copies). Counts the
+    gf.members, views of that one array ((0, 4) for an empty or None
+    member) (async_mode=True: a zero-arg finisher returning it; the
+    launches and each part's copy back are queued on the current stream,
+    and the finisher waits for the copies: _infer_launches). Counts the
     group in `snp.groups`, whose value tags its spans."""
     g = count("snp.groups")
-    outs = [np.zeros((len(sec) if sec is not None else 0, 4), np.float32)
-            for _oi, sec in gf.members]
-    parts = []  # (dst_mi, dst_j, _CopyBack)
-    bs = cfg.batch_size
-    with torch.inference_mode():
-        for ploidy, _deep, args, mis, js, r in pileup_cohorts(state, gf,
-                                                               cfg, g):
-            # ref: the centre-ref one-hot, all zero for N as jax.nn.one_hot's
-            with span("snp.launch", g):
-                x, _soc, ref = snp_pileup(*args)
-                parts.append((mis, js, _CopyBack(_snp_cnn(
-                    state.replicas[r], ploidy, x, ref, bs))))
-
-    def finish():
-        for mis, js, back in parts:
-            with span("snp.copy_out", g):
-                pr = back.numpy()
-            # after the copy-back, not at the launch: a hung kernel stops
-            # the beats (launches are asynchronous)
-            watchdog.beat()
-            for mi in np.unique(mis):
-                m = mis == mi
-                outs[mi][js[m]] = pr[m]
-        return outs
-
-    return finish if async_mode else finish()
-
-
-def chunk_cohorts(state, feats, cfg, ploidy):
-    """K3's launches for one chunk's payload (SnpChunkFeatures) called at
-    `ploidy`, as infer_snp_chunk makes them: the chunk's normal rows,
-    then its deep rows, split over the state's replicas
-    (sharding.dp_rows at cfg.batch_size), one launch each on the
-    replica's device, to which the payload goes once as a chunk wire;
-    their windows are the whole neighbour array [0, M). Returns [(deep,
-    args, rows, r)] where snp_pileup(*args) builds the pileups of the
-    candidates `rows` on replica r. Normal rows count every covering
-    read (checked within maxcov, for both devices); deep rows count
-    their host-sampled read ids."""
-    B = len(feats)
-    if B == 0:
-        return []
-    norm = _coverage_norm(state, feats, ploidy, cfg)
-    deep_mask = np.zeros(B, bool)
-    deep_mask[feats.deep_idx] = True
-    normal = np.flatnonzero(~deep_mask)
-    _check_depth(site_depth(feats), feats.cand_site[normal], feats.maxcov)
-    devices = state.devices
-    wires = {}
-    out = []
-    for deep, kind_rows in ((False, normal), (True, feats.deep_idx)):
-        for r, sub in enumerate(sharding.dp_rows(len(kind_rows),
-                                                 cfg.batch_size, devices)):
-            n = len(sub)
-            if not n:
-                continue
-            dev = devices[r]
-            if r not in wires:
-                wires[r] = chunk_wire(feats, dev)
-            wire = wires[r]
-            rows = kind_rows[sub]
-            i32 = lambda a: np.asarray(a, np.int32)
-            host = {"cand_site": i32(feats.cand_site[rows]),
-                    "cand_pos": i32(feats.cand_pos32[rows]),
-                    "lo": np.zeros(n, np.int32),
-                    "hi": np.full(n, wire.n_nbrs, np.int32),
-                    "norm": np.asarray(norm[rows], np.float32)}
-            n_valid = None
-            if deep:
-                host["rids"] = i32(feats.deep_rids[sub])
-                n_valid = torch.full((n,), feats.maxcov, dtype=torch.int32,
-                                     device=dev)
-            t = to_device(host, dev)
-            args = (wire, t["cand_site"], t["cand_pos"], t["lo"], t["hi"],
-                    t["norm"], t.get("rids"), n_valid)
-            out.append((deep, args, rows, r))
-    return out
-
-
-def _finisher(B, parts, async_mode):
-    out = np.zeros((B, 4), np.float32)
-
-    def finish():
-        for rows, back in parts:
-            with span("snp.copy_out"):
-                out[rows] = back.numpy()
-            watchdog.beat()  # after the copy-back (see infer_snp_group)
-        return out
-
-    return finish if async_mode else finish()
+    offsets = np.cumsum([0] + [len(sec) if sec is not None else 0
+                               for _oi, sec in gf.members])
+    launches = [(r, ploidy, _k3, args, offsets[mi] + j) for
+                ploidy, _deep, args, mi, j, r in pileup_cohorts(state, gf,
+                                                                cfg, g)]
+    return _infer_launches(state, launches, offsets[-1], cfg, async_mode,
+                           g, offsets[1:-1])
 
 
 def infer_snp_chunk(state, feats, cfg, ploidy, async_mode=False):
@@ -458,46 +465,36 @@ def infer_snp_chunk(state, feats, cfg, ploidy, async_mode=False):
     Returns the (B, 4) probabilities in candidate order (async_mode=True:
     a zero-arg finisher returning them; the launches and the copies back
     are queued on the current stream, and the finisher waits for the
-    copies)."""
-    parts = []
-    with torch.inference_mode():
-        for _deep, args, rows, r in chunk_cohorts(state, feats, cfg, ploidy):
-            x, _soc, ref = snp_pileup(*args)
-            parts.append((rows, _CopyBack(_snp_cnn(
-                state.replicas[r], ploidy, x, ref, cfg.batch_size))))
-    return _finisher(len(feats), parts, async_mode)
+    copies: _infer_launches)."""
+    return _infer_launches(state, [
+        (r, ploidy, _k3, args, rows)
+        for _deep, args, rows, r in chunk_cohorts(state, feats, cfg, ploidy)
+    ], len(feats), cfg, async_mode)
 
 
 def infer_snp_batch(state, batch, cfg, ploidy, async_mode=False):
     """Run the model over one chunk's dense SnpBatch: its rows split over
-    the state's replicas (sharding.dp_rows at cfg.batch_size), one K5
-    launch a replica on its device (codes cut to the batch's deepest
-    row's sampled reads, which lie first in every row), the CNN in
-    cfg.batch_size rows. Returns as infer_snp_chunk does."""
+    the state's replicas (_shares), one K5 launch a replica on its device
+    (codes cut to the batch's deepest row's sampled reads, which lie
+    first in every row), the CNN in cfg.batch_size rows. Returns as
+    infer_snp_chunk does."""
     B = len(batch)
-    parts = []
+    launches = []
     if B:
         norm = _coverage_norm(state, batch, ploidy, cfg)
         R_b = max(1, int(batch.sampled_depth.max()))
-        devices = state.devices
-        with torch.inference_mode():
-            for r, rows in enumerate(sharding.dp_rows(B, cfg.batch_size,
-                                                      devices)):
-                if not len(rows):
-                    continue
+        for r, rows in _shares(state, B, cfg):
+            with span("snp.copy_in"):
                 t = to_device({
                     "codes": batch.codes[rows, :R_b],
                     "read_mask": batch.read_mask[rows, :R_b],
                     "col_ref": batch.col_ref[rows],
                     "col_valid": batch.col_valid[rows],
                     "center_ref": batch.center_ref[rows],
-                    "norm": norm[rows]}, devices[r])
-                x, ref = snp_dense_pileup(
-                    t["codes"], t["read_mask"], t["col_ref"],
-                    t["col_valid"], t["center_ref"], t["norm"])
-                parts.append((rows, _CopyBack(_snp_cnn(
-                    state.replicas[r], ploidy, x, ref, cfg.batch_size))))
-    return _finisher(B, parts, async_mode)
+                    "norm": norm[rows]}, state.devices[r])
+            launches.append((r, ploidy, snp_dense_pileup,
+                             tuple(t.values()), rows))
+    return _infer_launches(state, launches, B, cfg, async_mode)
 
 
 def infer_snp_any(state, feats, cfg, ploidy, async_mode=False):

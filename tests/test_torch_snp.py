@@ -381,6 +381,29 @@ def test_infer_snp_group_probabilities(payloads, states, case):
         assert sum(len(g) for g in got) > 0
         for g, w in zip(got, want):
             np.testing.assert_allclose(g, w, atol=2e-5)
+        for g, w in zip(got, _member_scatter(pstate, got_gf, cfg)):
+            assert g.shape == w.shape and np.array_equal(g, w)
+    # the members the cases cover: a None one, and for "deep" two cohorts
+    assert [s is None for _, s in got_gf.members] == EMPTY
+    n_cohorts = len({(p, d) for p, d, *_ in P.pileup_cohorts(
+        pstate, got_gf, Cfg())})
+    assert n_cohorts == (2 if case == "deep" else 1)
+
+
+def _member_scatter(state, gf, cfg):
+    """infer_snp_group's per-member arrays built launch by launch, each
+    launch's rows scattered member by member into an array of its own."""
+    outs = [np.zeros((len(sec) if sec is not None else 0, 4), np.float32)
+            for _oi, sec in gf.members]
+    with torch.inference_mode():
+        for ploidy, _deep, args, mis, js, r in P.pileup_cohorts(state, gf,
+                                                                 cfg):
+            x, _soc, ref = K3.snp_pileup(*args)
+            probs = P._snp_cnn(state.replicas[r], ploidy, x, ref,
+                               cfg.batch_size).numpy()
+            for mi in np.unique(mis):
+                outs[mi][js[mis == mi]] = probs[mis == mi]
+    return outs
 
 
 def test_empty_group_gives_empty_members(snp_fixture, states):

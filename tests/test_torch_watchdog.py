@@ -281,7 +281,8 @@ def _counting(monkeypatch):
 def test_beat_sites_fire(tmp_path, monkeypatch):
     """Each beat site fires in --cpu 1 runs: `--mode all` (run() ignores
     cfg.watchdog, which only cli.main acts on) and the per-chunk SNP path
-    (`snp_group_payload=False`, whose copy-back is _finisher's)."""
+    (`snp_group_payload=False`); the group and the chunk routes' copy-backs
+    share one finisher, whose beat fires in both runs."""
     from nanocaller_tpu_torch.caller import run
     from nanocaller_tpu_torch.config import Config
 
@@ -295,16 +296,18 @@ def test_beat_sites_fire(tmp_path, monkeypatch):
     out = run(Config(mode="all", output=str(tmp_path / "all"),
                      suppress_progress=False, watchdog=5, **kw))
     assert out["final"] and os.path.exists(out["final"])
+    snp_site = ("snp_caller.py", "_infer_launches.<locals>.finish")
+    group_beats = sites.get(snp_site, 0)
+    assert group_beats > 0, sites
     run(Config(mode="snps", output=str(tmp_path / "chunk"),
                suppress_progress=True, snp_group_payload=False, **kw))
     want = {("scheduler.py", "RunManifest.mark_done"),
             ("scheduler.py", "Progress.update"),
-            ("workers.py", "phase_one_contig"),
-            ("snp_caller.py", "infer_snp_group.<locals>.finish"),
-            ("snp_caller.py", "_finisher.<locals>.finish"),
+            ("workers.py", "phase_one_contig"), snp_site,
             ("indel_caller.py", "_run_stacked"),
             ("indel_features.py", "finish_indel_jobs")}
     assert want <= set(sites), sites
+    assert sites[snp_site] > group_beats  # the chunk route's copy-backs
     assert sites[("workers.py", "phase_one_contig")] == 4  # one contig
     assert sites[("indel_features.py", "finish_indel_jobs")] % 2 == 0
 
@@ -357,10 +360,11 @@ sleep 3
 
 
 def test_nvcc_build_beats(tmp_path, monkeypatch, heartbeat):
-    """build() beats while its nvcc processes run (five compiles together,
-    then the link: ~6 s with this stand-in), and a temporary directory
-    that a killed build left behind does not stop the next one."""
-    from nanocaller_tpu_torch.align import nw_kernels as K
+    """build() beats while its nvcc processes run (one compile a csrc/*.cu,
+    all together, then the link: ~6 s with this stand-in), and a
+    temporary directory that a killed build left behind does not stop the
+    next one."""
+    from nanocaller_tpu_torch.runtime import kernels as K
 
     nvcc = tmp_path / "nvcc"
     nvcc.write_text(_FAKE_NVCC)

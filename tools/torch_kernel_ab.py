@@ -46,14 +46,14 @@ K5_SHAPES = [(625, 45), (4096, 160), (4096, 64), (496, 160), (496, 48)]
 def build(sources, out_dir):
     """{(version, name): library path}, one nvcc a source, all started
     together; prints each one's ptxas lines."""
-    from nanocaller_tpu_torch.align import nw_kernels as K
+    from nanocaller_tpu_torch.runtime import kernels
 
-    nvcc = K._nvcc()
+    nvcc = kernels._nvcc()
     procs = {}
     for key, src in sources.items():
         lib = os.path.join(out_dir, "%s_%s.so" % key)
         procs[key] = (lib, subprocess.Popen(
-            [nvcc, *K.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", lib,
+            [nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", lib,
              src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     libs = {}
@@ -204,6 +204,7 @@ def main():
     import chip_smoke as S
     from nanocaller_tpu_torch.align import nw_kernels as K
     from nanocaller_tpu_torch.pileup import snp_dense as K5
+    from nanocaller_tpu_torch.runtime import kernels
 
     lines = []
 
@@ -221,7 +222,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
         libs = {key: load(path, key[1])
                 for key, path in build(sources, tmp).items()}
-        K.build()
+        kernels.build()
         rng = np.random.default_rng(12)
         with torch.inference_mode():
             for label, ops, qr, rr in k4_cases(S, K, rng):
