@@ -199,9 +199,8 @@ def _wire(gf, exc_indptr, exc_rid, exc_code, device, kind, arg=None):
         if len(spans) > 1:
             span_start[1:] = np.cumsum(spans[:-1])
         order, win_lo, win_hi = read_windows(read_lo, read_hi, S)
-        rows = np.arange(S + 2, dtype=i32)
         if exc_indptr is None:
-            exc_indptr = np.searchsorted(gf.exc_site, rows).astype(i32)
+            exc_indptr = _prefix_count(gf.exc_site, S + 2, strict=True)
         site = lambda a: np.concatenate([np.asarray(a, np.int8), trash])
         host = dict(
             read_lo=read_lo, read_hi=read_hi, span_start=span_start,
@@ -210,7 +209,7 @@ def _wire(gf, exc_indptr, exc_rid, exc_code, device, kind, arg=None):
             minor_bits=np.asarray(gf.minor_bits, np.uint8),
             exc_indptr=exc_indptr, exc_rid=np.asarray(exc_rid, i32),
             exc_code=np.asarray(exc_code, np.int8),
-            hole_indptr=np.searchsorted(gf.hole_site, rows).astype(i32),
+            hole_indptr=_prefix_count(gf.hole_site, S + 2, strict=True),
             hole_rid=np.asarray(gf.hole_rid, i32),
             order=order, win_lo=win_lo, win_hi=win_hi,
             nbr_pos=nbr_pos, nbr_union=nbr_union,
@@ -233,26 +232,37 @@ def site_depth(gf):
     return np.cumsum(starts - ends)[:S] - holes[:S]
 
 
+def _prefix_count(keys, n, strict):
+    """For every row r in [0, n), how many keys are below r (strict) or
+    at or below it: for sorted keys what np.searchsorted(keys,
+    np.arange(n), "left" or "right") gives, by one bincount and one cumsum
+    over the rows in place of a binary search a row. The keys may come in
+    any order and lie anywhere: one below 0 counts in every row, one past
+    the last row in none. int32 (n,)."""
+    idx = np.clip(keys, -1, n - 1) if strict else np.clip(keys, 0, n)
+    if strict:
+        idx += 1
+    return np.cumsum(np.bincount(idx, minlength=n + 1)[:n], dtype=np.int32)
+
+
 def read_windows(read_lo, read_hi, S):
     """The reads' start order and, for every site s in [0, S], the window
     [k0, k1) of that order that holds every read covering s:
-    order sorts the read ids by (read_lo, id); k1 is the upper bound of
-    s in read_lo[order] (the reads starting at or before s), k0 the lower
-    bound of s in the running max of read_hi[order] (before k0 every read
-    ends before s). Exact whatever the reads' id order; the window may
-    also hold reads that do not cover s (one long read widens every
-    window after its start), and is empty where k0 >= k1 (site S, the
-    trash site, is covered by no read). int32 arrays (N,), (S + 1,),
-    (S + 1,)."""
+    order sorts the read ids by (read_lo, id); k1 counts the reads
+    starting at or before s, k0 the reads of that order before the
+    running max of their read_hi reaches s (before k0 every read ends
+    before s), both by _prefix_count over the site axis. Exact whatever
+    the reads' id order; the window may also hold reads that do not cover
+    s (one long read widens every window after its start), and is empty
+    where k0 >= k1 (site S, the trash site, is covered by no read). int32
+    arrays (N,), (S + 1,), (S + 1,)."""
     read_lo = np.asarray(read_lo, np.int32)
     read_hi = np.asarray(read_hi, np.int32)
     order = np.argsort(read_lo, kind="stable").astype(np.int32)
-    sites = np.arange(S + 1, dtype=np.int32)
-    k1 = np.searchsorted(read_lo[order], sites, side="right")
     hi_max = np.maximum.accumulate(read_hi[order]) if len(order) \
         else np.zeros(0, np.int32)
-    k0 = np.searchsorted(hi_max, sites, side="left")
-    return order, k0.astype(np.int32), k1.astype(np.int32)
+    return (order, _prefix_count(hi_max, S + 1, strict=True),
+            _prefix_count(read_lo, S + 1, strict=False))
 
 
 _WIRE_DTYPES = {

@@ -11,7 +11,10 @@ per-member fallback (the SNP VCF bytes)."""
 import copy
 import dataclasses
 import gzip
+import importlib.util
+import json
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -34,9 +37,9 @@ from nanocaller_tpu_torch.io.bam import BamReader
 from nanocaller_tpu_torch.io.fasta import FastaFile
 from nanocaller_tpu_torch.pileup import snp_pileup as K3
 from nanocaller_tpu_torch.pileup.engine import decode_reads
-from nanocaller_tpu_torch.pileup.snp_features import (BAND_SCHEDULES,
-                                                      CENTER, WIDTH,
-                                                      get_snp_group_payloads)
+from nanocaller_tpu_torch.pileup.snp_features import (
+    BAND_SCHEDULES, CENTER, WIDTH, get_snp_chunk_features,
+    get_snp_group_payloads)
 from nanocaller_tpu_torch.runtime.metrics import total
 from nanocaller_tpu_torch.sim import random_group_wire
 
@@ -354,6 +357,145 @@ def test_read_windows_hold_every_covering_read(span_all):
     for got, want in zip((wire.order, wire.win_lo, wire.win_hi),
                          (order, k0, k1)):
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _searched_layout(read_lo, read_hi, S, exc_site, hole_site):
+    """The oracle of the wire's site-indexed arrays: each by one binary
+    search a site, over S + 1 sites (order, win_lo, win_hi) and S + 2 rows
+    (exc_indptr, hole_indptr)."""
+    lo = np.asarray(read_lo, np.int32)
+    order = np.argsort(lo, kind="stable").astype(np.int32)
+    hi_max = np.maximum.accumulate(np.asarray(read_hi, np.int32)[order]) \
+        if len(order) else np.zeros(0, np.int32)
+    sites = np.arange(S + 1, dtype=np.int32)
+    rows = np.arange(S + 2, dtype=np.int32)
+    i32 = lambda a: a.astype(np.int32)
+    return {"order": order,
+            "win_lo": i32(np.searchsorted(hi_max, sites, side="left")),
+            "win_hi": i32(np.searchsorted(lo[order], sites, side="right")),
+            "exc_indptr": i32(np.searchsorted(exc_site, rows)),
+            "hole_indptr": i32(np.searchsorted(hole_site, rows))}
+
+
+def _payload(S, read_lo, read_hi, exc_site, hole_site):
+    """A group payload around the given keys (the other fields zero)."""
+    i32 = lambda a: np.asarray(a, np.int32)
+    zeros = lambda n, t=np.int32: np.zeros(n, t)
+    return SimpleNamespace(
+        read_lo=i32(read_lo), read_hi=i32(read_hi), site_ref=zeros(S, np.int8),
+        site_major=zeros(S, np.int8), site_minor=zeros(S, np.int8),
+        minor_bits=zeros(0, np.uint8), exc_site=i32(exc_site),
+        exc_rid=zeros(len(exc_site)), exc_code=zeros(len(exc_site), np.int8),
+        hole_site=i32(hole_site), hole_rid=zeros(len(hole_site)),
+        nbr_pos=zeros(0), nbr_union=zeros(0), seq_type="ont")
+
+
+def _cell_payload(rng):
+    """One decode group of the benchmark's ont_snp_stream traffic, cut to
+    one member with short halos (S = 2,001 sites, N = 864 reads): its
+    depth, read length and exception share as the cell has them."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "gen_snp", os.path.join(root, "benchmark", "nbench", "gen_snp.py"))
+    gen_snp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen_snp)
+    with open(os.path.join(root, "benchmark", "traffic",
+                           "ont_snp_stream.json")) as f:
+        traffic = json.load(f)
+    traffic.update(members_per_group=1, member_bp=300_000, halo_bp=20_000)
+    group = gen_snp.make_group(rng, traffic, 160, "ont")
+    return SimpleNamespace(**{k: v for k, v in group.items()
+                              if k != "members"})
+
+
+def _layout_case(case):
+    rng = np.random.default_rng(41 + LAYOUT_CASES.index(case))
+    if case == "cell":
+        return _cell_payload(rng)
+    if case == "tiny":  # N = 0, S = 1, E = 0, H = 0
+        return _payload(1, [], [], [], [])
+    if case in ("unsorted", "span_all"):
+        w, *_ = random_group_wire(rng, S=60, N=300, B=1, max_span=8,
+                                  span_all=case == "span_all")
+        return w
+    if case == "empty_reads":  # every read empty but one, which spans all
+        lo, hi = np.ones(40, np.int32), np.zeros(40, np.int32)
+        lo[7], hi[7] = 0, 29
+        return _payload(30, lo, hi, [3, 3, 17], [5, 29])
+    S = 20
+    if case == "edges":  # keys at 0 and at S, the trash site
+        return _payload(S, [S, 0, 5, 0, S], [S, 4, S, S - 1, S - 1],
+                        [0, 0, 7, S, S], [0, S])
+    # "outside": keys below 0 and past the last row
+    return _payload(S, [-3, 30, 2, -1, 2**31 - 1], [5, 40, -9, 2**31 - 1, 1],
+                    [-4, -1, 0, S + 1, S + 2, 2**31 - 1], [-2**31, S + 9])
+
+
+LAYOUT_CASES = ["unsorted", "empty_reads", "span_all", "edges", "outside",
+                "tiny", "cell"]
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES)
+def test_wire_counts_equal_binary_search(case):
+    """group_wire's order, read windows and CSR row pointers, now prefix
+    counts over the site axis, equal a binary search a site bit for bit
+    and dtype for dtype: on reads out of start order, empty reads, one
+    read over every site, keys at 0 and at the trash site S, keys outside
+    [0, S], no read and no exception, and a payload at the benchmark
+    cell's statistics."""
+    w = _layout_case(case)
+    S = len(w.site_ref)
+    if case == "unsorted":
+        assert (np.diff(w.read_lo) < 0).any() and (w.read_lo > w.read_hi).any()
+    if case == "cell":
+        assert S == 2001 and len(w.read_lo) == 864 and len(w.exc_site) > 5000
+    want = _searched_layout(w.read_lo, w.read_hi, S, w.exc_site, w.hole_site)
+    wire = K3.group_wire(w, "cpu")
+    for name, a in want.items():
+        got = getattr(wire, name).numpy()
+        assert got.dtype == a.dtype == np.int32, name
+        np.testing.assert_array_equal(got, a, err_msg=name)
+    for got, a in zip(K3.read_windows(w.read_lo, w.read_hi, S),
+                      (want["order"], want["win_lo"], want["win_hi"])):
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, a)
+
+
+@pytest.mark.parametrize("source", ["fixture", "random"])
+def test_chunk_wire_keeps_its_csr(snp_fixture, source):
+    """chunk_wire ships the chunk's own exc_indptr with the trash row's
+    pointer appended, splits exc_packed into exc_rid and exc_code, and
+    lays out the read windows and hole_indptr as the binary-search oracle
+    does."""
+    if source == "fixture":
+        fasta_p, bam_p = snp_fixture
+        feats = get_snp_chunk_features(
+            BamReader(bam_p), FastaFile(fasta_p),
+            {"chrom": "chr_t", "start": 1, "end": 50_000,
+             "ploidy": "diploid"}, seq_type="ont", maxcov=160)
+    else:
+        w, *_ = random_group_wire(np.random.default_rng(23), S=50, N=200,
+                                  B=1, max_span=10)
+        feats = SimpleNamespace(**vars(w))
+        feats.exc_packed = (w.exc_rid.astype(np.uint32) << 3) | w.exc_code
+        feats.exc_indptr = np.searchsorted(
+            w.exc_site, np.arange(len(w.site_ref) + 1)).astype(np.int32)
+    S = len(feats.site_ref)
+    assert len(feats.exc_indptr) == S + 1 and feats.exc_indptr[-1] > 0
+    wire = K3.chunk_wire(feats, "cpu")
+    assert wire.kind == "chunk"
+    np.testing.assert_array_equal(
+        wire.exc_indptr.numpy(),
+        np.append(feats.exc_indptr, feats.exc_indptr[-1]).astype(np.int32))
+    packed = np.asarray(feats.exc_packed, np.int64)
+    np.testing.assert_array_equal(wire.exc_rid.numpy(), packed >> 3)
+    np.testing.assert_array_equal(wire.exc_code.numpy(), packed & 7)
+    want = _searched_layout(feats.read_lo, feats.read_hi, S,
+                            np.zeros(0, np.int32), feats.hole_site)
+    for name in ("order", "win_lo", "win_hi", "hole_indptr"):
+        got = getattr(wire, name).numpy()
+        assert got.dtype == np.int32, name
+        np.testing.assert_array_equal(got, want[name], err_msg=name)
 
 
 @pytest.fixture(scope="module")
