@@ -4,7 +4,7 @@ group's K3 launch and the SNP CNN's forwards (the host's time to launch
 them, not the device's).
 
 A traced reading, not the untraced one: the profiler slows each of the
-group's ~584 runtime calls, so this reads above the host-clock time of
+group's ~105 runtime calls, so this reads above the host-clock time of
 an untraced run, and snp.copy_out_ms_per_group reads low by about as
 much (the host reaches the copy-back later, with less of the device's
 work left). Read the two as a sum, which the profiler moves far less,

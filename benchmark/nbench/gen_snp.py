@@ -13,12 +13,19 @@ candidate rows and neighbour window.
 Every size is fixed by the traffic file (sites a member and a halo,
 reads, candidates, neighbours, exceptions and holes as shares of the
 cells), so every seed gives the same shapes; the seed draws positions,
-codes and which cells are exceptions or holes. Groups are plain dicts of
-numpy arrays, so that the port's payload and the reference are built
-from the same arrays.
+codes and which cells are exceptions or holes. Reads are all
+`read_len_bp` long, or, where the file gives `read_len_dist`, of lengths
+drawn from that distribution at fixed quantiles (`read_lengths`): the
+same lengths for every seed, which only deals them out to starts, since
+the tail of the lengths sets how many reads K3 scans a row. Groups are
+plain dicts of numpy arrays, so that the port's payload and the
+reference are built from the same arrays.
 """
 
 from __future__ import annotations
+
+import math
+from statistics import NormalDist
 
 import numpy as np
 
@@ -35,6 +42,45 @@ def _choose(rng, n, k):
         np.zeros(0, np.int64)
 
 
+def _lognormal(dist):
+    """(mu, sigma, cap) of a `read_len_dist`: a log-normal whose N50 (the
+    median of the length-weighted lengths, exp(mu + sigma^2)) is
+    `n50_bp`, capped at `max_bp`."""
+    if dist.get("kind") != "lognormal":
+        raise ValueError("read_len_dist: unknown kind %r" % dist.get("kind"))
+    sigma = float(dist["sigma"])
+    if not (sigma > 0 and 0 < dist["n50_bp"] <= dist["max_bp"]):
+        raise ValueError("read_len_dist: needs sigma > 0 and "
+                         "0 < n50_bp <= max_bp, got %r" % (dist,))
+    return math.log(dist["n50_bp"]) - sigma * sigma, sigma, dist["max_bp"]
+
+
+def mean_read_len(traffic):
+    """The mean read length in bp: `read_len_bp`, or the mean of the
+    capped `read_len_dist`, E[min(L, cap)] for L log-normal."""
+    dist = traffic.get("read_len_dist")
+    if dist is None:
+        return traffic["read_len_bp"]
+    mu, sigma, cap = _lognormal(dist)
+    nd, c = NormalDist(), math.log(cap)
+    return (math.exp(mu + sigma * sigma / 2)
+            * nd.cdf((c - mu - sigma * sigma) / sigma)
+            + cap * (1.0 - nd.cdf((c - mu) / sigma)))
+
+
+def read_lengths(traffic, n):
+    """The n read lengths of a group with `read_len_dist`, ascending
+    int64: the distribution's quantiles at (i + 0.5) / n, capped at
+    `max_bp`, the longest at `max_bp` itself. The same for every seed."""
+    mu, sigma, cap = _lognormal(traffic["read_len_dist"])
+    inv = NormalDist().inv_cdf
+    z = np.array([inv((i + 0.5) / n) for i in range(n)])
+    out = np.minimum(np.rint(np.exp(mu + sigma * z)), cap).astype(np.int64)
+    if n:
+        out[-1] = cap
+    return out
+
+
 def group_sizes(traffic):
     """The fixed sizes of every group of a traffic mix: sites a member and
     a halo side, members, reads, candidate rows a member, neighbours."""
@@ -46,12 +92,28 @@ def group_sizes(traffic):
     S = members * s_member + 2 * s_halo
     region_bp = members * member_bp + 2 * halo_bp
     N = int(round(traffic["reads_per_mb"]
-                  * (region_bp + traffic["read_len_bp"]) * mb))
+                  * (region_bp + mean_read_len(traffic)) * mb))
     return {"members": members, "s_member": s_member, "s_halo": s_halo,
             "S": S, "N": N, "region_bp": region_bp,
             "rows_member": int(round(traffic["cand_share_of_sites"]
                                      * s_member)),
             "M": int(round(traffic["nbr_share_of_sites"] * S))}
+
+
+def read_intervals(rng, traffic, region_bp, N):
+    """The reads' [start, end) in bp, in start order. Fixed lengths start
+    uniformly in [-read_len_bp, region_bp). With `read_len_dist` the seed
+    deals the fixed lengths out to the reads, and a read of length L
+    starts uniformly in [1 - L, region_bp), so that each overlaps the
+    region and the depth is the same all over it."""
+    if "read_len_dist" not in traffic:
+        read_len = traffic["read_len_bp"]
+        starts = np.sort(rng.integers(-read_len, region_bp, N))
+        return starts, starts + read_len
+    length = read_lengths(traffic, N)[rng.permutation(N)]
+    starts = rng.integers(1 - length, region_bp)
+    order = np.argsort(starts, kind="stable")
+    return starts[order], starts[order] + length[order]
 
 
 def make_group(rng, traffic, maxcov, seq_type):
@@ -60,7 +122,6 @@ def make_group(rng, traffic, maxcov, seq_type):
     (SnpGroupMember's field names)."""
     z = group_sizes(traffic)
     member_bp, halo_bp = traffic["member_bp"], traffic["halo_bp"]
-    read_len = traffic["read_len_bp"]
     S, N, M = z["S"], z["N"], z["M"]
     # union sites: a fixed count in each member's chunk and each halo
     spans = [(0, halo_bp, z["s_halo"])]
@@ -73,9 +134,9 @@ def make_group(rng, traffic, maxcov, seq_type):
         for lo, hi, k in spans]).astype(np.int64)
     # reads: uniform starts (so uniform depth over the region), in start
     # order, as intervals over the union sites
-    starts = np.sort(rng.integers(-read_len, z["region_bp"], N))
+    starts, ends = read_intervals(rng, traffic, z["region_bp"], N)
     lo = np.searchsorted(site_pos, starts, side="left")
-    hi = np.searchsorted(site_pos, starts + read_len, side="left") - 1
+    hi = np.searchsorted(site_pos, ends, side="left") - 1
     empty = lo > hi
     read_lo = np.where(empty, 1, lo).astype(np.int32)
     read_hi = np.where(empty, 0, hi).astype(np.int32)

@@ -1,6 +1,7 @@
 """Shared set-up of the benchmark's own tests (CPU; those marked `cuda`
-skip without a card): the import paths run.py sets, and a Spec whose
-traffic is cut to a size the CPU runs in seconds."""
+skip without a card): the import paths run.py sets, a Spec whose
+traffic is cut to a size the CPU runs in seconds, and ultra-long read
+lengths for a traffic mix."""
 
 import os
 import sys
@@ -13,7 +14,7 @@ for p in (ROOT, BENCH):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-from nbench import harness  # noqa: E402
+from nbench import gen_snp, harness  # noqa: E402
 
 
 def pytest_configure(config):
@@ -44,3 +45,19 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     return "cuda"
+
+
+@pytest.fixture
+def ul_reads():
+    """A function that turns a traffic mix into ultra-long ONT reads at
+    48x: in place of `read_len_bp`, log-normal lengths with N50 100 kb,
+    the longest 1 Mb (Jain et al., Nat. Biotechnol. 36:338, 2018)."""
+
+    def ul(t):
+        t = dict(t, read_len_dist={"kind": "lognormal", "n50_bp": 100000,
+                                   "sigma": 0.8, "max_bp": 1000000})
+        del t["read_len_bp"]
+        t["reads_per_mb"] = 48e6 / gen_snp.mean_read_len(t)
+        return t
+
+    return ul
